@@ -1,0 +1,64 @@
+"""Process self-measurement without psutil (offline container).
+
+The paper samples memory with psutil every 10 ms; we read the same VmRSS
+quantity straight from ``/proc/self/status``.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+
+def rss_mb() -> float:
+    """Resident set size of this process in MB (VmRSS)."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return float(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+
+
+def peak_rss_mb() -> float:
+    """Peak resident set size of this process in MB (VmHWM — the
+    kernel's high-water mark, so it never misses a spike between
+    samples the way polling ``rss_mb`` can)."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmHWM:"):
+                    return float(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+
+
+def cpu_time_s() -> float:
+    """Total CPU seconds consumed by this process so far (user +
+    system, all threads — ``os.times``, not the main-thread-only
+    ``time.process_time`` split the simulator reports per run)."""
+    t = os.times()
+    return float(t.user + t.system)
+
+
+class Timer:
+    """Accumulating wall-clock timer with context-manager splits."""
+
+    def __init__(self) -> None:
+        self.total = 0.0
+        self.count = 0
+        self._t0 = 0.0
+
+    def __enter__(self) -> "Timer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.total += time.perf_counter() - self._t0
+        self.count += 1
+
+    @property
+    def mean(self) -> float:
+        return self.total / self.count if self.count else 0.0

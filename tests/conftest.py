@@ -6,3 +6,8 @@ import sys
 os.environ.setdefault("REPRO_KERNELS", "interpret")
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where there is none")
