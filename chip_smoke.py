@@ -136,7 +136,9 @@ def ricc_jobs(job_cls, n, seed=1):
 class Tap:
     """Observes the port's ``ops`` wrappers: per kernel, the peak size
     (J, M) of the current row and the largest inputs of each phase, for
-    the kernel checks.  It launches nothing itself."""
+    the kernel checks.  It keeps references, not copies (the inputs are
+    cast to int32 only when the checks run), so it adds a size compare
+    per call to the timed rows.  It launches nothing itself."""
 
     SIZE = {"alloc_score": lambda a: a[0].shape[0],
             "alloc_score_batch": lambda a: a[2].shape[0],
@@ -159,8 +161,7 @@ class Tap:
             self.peak[name] = max(self.peak.get(name, 0), s)
             key = (self.phase, name)
             if s > self.inputs.get(key, (-1,))[0]:
-                self.inputs[key] = (s, tuple(np.array(a, dtype=np.int32)
-                                             for a in args[:3]))
+                self.inputs[key] = (s, args[:3])
             return orig(*args)
         return observed
 
@@ -207,15 +208,20 @@ def device_time_us(prof):
 def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
              max_events=None, profile=False):
     """Run ``vx_sched`` (CUDA) and its numpy twin on the same workload and
-    hold their per-event traces equal; returns the row's numbers."""
+    hold their per-event traces equal; returns the row's numbers.  Both
+    timed runs go without the profiler.  With ``profile`` the CUDA row is
+    run a second time under ``torch.profiler`` for its device time, and
+    that run's traces are held equal too."""
+    runs = [("cuda", vx_sched, False), ("numpy", np_sched, False)]
+    if profile:
+        runs.append(("cuda_profiled", vx_sched, True))
     rows = {}
-    for engine, sched in (("cuda", vx_sched), ("numpy", np_sched)):
+    for engine, sched, traced in runs:
         rec = Recorder(sched)
         tap.peak = {}
         with tempfile.TemporaryDirectory() as td:
             sim = Simulator(jobs(Job), system, rec, output_dir=td,
                             name=label)
-            traced = profile and engine == "cuda"
             with (torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA])
                   if traced else contextlib.nullcontext()) as prof:
@@ -225,15 +231,17 @@ def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         rows[engine] = (rec, sim.summary, wall, dict(tap.peak), prof)
-    rec, summ, wall, peak, prof = rows["cuda"]
+    rec, summ, wall, peak, _ = rows["cuda"]
     twin, twin_summ, twin_wall, _, _ = rows["numpy"]
-    if rec.traces != twin.traces:
-        first = next(i for i, (a, b) in enumerate(zip(rec.traces,
-                                                      twin.traces))
-                     if a != b) if len(rec.traces) == len(twin.traces) \
-            else min(len(rec.traces), len(twin.traces))
-        raise AssertionError(f"{label}: per-event traces diverge from the "
-                             f"numpy twin at dispatch event {first}")
+    for engine in rows:
+        got = rows[engine][0].traces
+        if got != twin.traces:
+            first = next(i for i, (a, b) in enumerate(zip(got, twin.traces))
+                         if a != b) if len(got) == len(twin.traces) \
+                else min(len(got), len(twin.traces))
+            raise AssertionError(f"{label} ({engine}): per-event traces "
+                                 f"diverge from the numpy twin at dispatch "
+                                 f"event {first}")
     for k in ("events", "submitted", "completed", "rejected",
               "sim_end_time"):
         if summ[k] != twin_summ[k]:
@@ -258,10 +266,14 @@ def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
            "twin_wall_s": twin_wall,
            "twin_events_per_s": twin_summ["events"] / twin_wall,
            "traces_equal": True}
-    if prof is not None:
+    if profile:
+        # the profiled run does the same device work; its shares are of
+        # the unprofiled wall, and its own wall shows the profiler's cost
+        _, _, prof_wall, _, prof = rows["cuda_profiled"]
         ours, total = device_time_us(prof)
         out["kernel_share_of_wall"] = ours * 1e-6 / wall
         out["device_busy_share"] = total * 1e-6 / wall
+        out["profiled_wall_s"] = prof_wall
     return out
 
 
@@ -437,7 +449,8 @@ def run(dev) -> int:
 
     # ---- 4. kernels against their plain versions ---------------------
     rng = np.random.default_rng(0)
-    put = lambda xs: tuple(torch.from_numpy(x).to(dev) for x in xs)
+    put = lambda xs: tuple(
+        torch.from_numpy(np.array(x, dtype=np.int32)).to(dev) for x in xs)
     table = []
 
     def main_inputs(name):

@@ -148,21 +148,22 @@ class VectorizedEasyBackfilling(EasyBackfilling):
     (greedy head, shadow reservation and backfill phases all reconcile
     against it) and whose shadow-time prefix scan runs in the
     ``ebf_shadow`` kernel — O(1) launches per event regardless of queue
-    depth.  The shadow scan runs on the allocator's device (the card when
-    the allocator is not a :class:`VectorizedAllocator`)."""
+    depth.  It takes a :class:`VectorizedAllocator` and runs the shadow
+    scan on that allocator's device."""
 
     name = "vEBF"
 
-    def __init__(self, allocator) -> None:
+    def __init__(self, allocator: VectorizedAllocator) -> None:
+        if not isinstance(allocator, VectorizedAllocator):
+            raise TypeError("VectorizedEasyBackfilling needs a "
+                            "VectorizedAllocator, got "
+                            f"{type(allocator).__name__}")
         super().__init__(allocator)
-        self.device = allocator.device \
-            if isinstance(allocator, VectorizedAllocator) \
-            else ops.resolve_device(None)
+        self.device = allocator.device
 
     def _make_finder(self, ctx: DispatchContext):
         alloc = self.allocator
-        if isinstance(alloc, VectorizedAllocator) and alloc.batched \
-                and ctx.n_queued > 0:
+        if alloc.batched and ctx.n_queued > 0:
             return alloc.batch_probe(ctx).find
         return super()._make_finder(ctx)
 

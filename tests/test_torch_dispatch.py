@@ -16,6 +16,7 @@ import json
 import os
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +25,7 @@ from repro.core import EventManager as REventManager
 from repro.core import Job as RJob
 from repro.core import ResourceManager as RResourceManager
 from repro.core import Simulator as RSimulator
+from repro.core.dispatchers import BestFit as RBestFit
 from repro.core.dispatchers import DispatchContext as RDispatchContext
 from repro.core.dispatchers import (FirstInFirstOut as RFirstInFirstOut,
                                     LongestJobFirst as RLongestJobFirst,
@@ -233,3 +235,25 @@ def test_per_event_replay_of_reference_vebf_vbf(tmp_path):
 def test_vebf_runs_on_its_allocators_device():
     alloc = VectorizedAllocator("BF", device=CPU)
     assert VectorizedEasyBackfilling(alloc).device == torch.device(CPU)
+    # a numpy allocator has no device to inherit: no hidden default
+    with pytest.raises(TypeError, match="needs a VectorizedAllocator"):
+        VectorizedEasyBackfilling(FirstFit())
+
+
+# ---------------------------------------------------------------- BF ties
+def test_bestfit_float64_and_vbf_float32_break_an_exact_tie_apart():
+    """Numpy ``BestFit`` sums the load in float64, the vectorized path in
+    float32 (the kernel's arithmetic).  On a node of capacity (2, 6), used
+    (0, 5) and used (1, 2) tie exactly (5/6), but the two precisions
+    round them in opposite directions, so BF and vBF pick different
+    nodes.  The port keeps each engine's choice of the reference."""
+    cap =np.array([[2, 6], [2, 6]], np.int64)
+    avail = cap - np.array([[0, 5], [1, 2]], np.int64)
+    req = np.array([1, 1], np.int64)
+    got64 = BestFit().find_nodes(req, 1, avail, cap)
+    got32 = VectorizedAllocator("BF", device=CPU).find_nodes(
+        req, 1, avail, cap)
+    assert list(got64) == list(RBestFit().find_nodes(req, 1, avail, cap)) \
+        == [0]
+    assert list(got32) == list(RVectorizedAllocator(
+        "BF", batched=False).find_nodes(req, 1, avail, cap)) == [1]

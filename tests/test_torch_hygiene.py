@@ -65,7 +65,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
 def test_without_gpu_the_vectorized_path_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from repro_torch.core.dispatchers import FirstFit, FirstInFirstOut
+    from repro_torch.core.dispatchers import FirstInFirstOut
     from repro_torch.core.dispatchers.vectorized import (
         VectorizedAllocator, VectorizedEasyBackfilling)
     from repro_torch.kernels import ops
@@ -73,8 +73,6 @@ def test_without_gpu_the_vectorized_path_raises():
         FirstInFirstOut(VectorizedAllocator("FF"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         VectorizedEasyBackfilling(VectorizedAllocator("BF", batched=False))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        VectorizedEasyBackfilling(FirstFit())
     a = np.ones((4, 2), np.int64)
     with pytest.raises((RuntimeError, AssertionError)):
         ops.alloc_score_batch(a, a, np.zeros((1, 2), np.int64), "cuda")
