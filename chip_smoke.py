@@ -16,16 +16,34 @@ and drives the simulator's main path on the card:
    submitted within the first hour, so the queue is thousands of jobs
    deep: vEBF-vBF, FIFO-vBF and per-job FIFO-vFF against their numpy
    twins, capped by ``max_events``;
-4. kernels: each kernel against its plain PyTorch version on the card,
-   on the largest inputs the main path gave it plus ragged and
-   -1-floored cases (fit exact, score bitwise), with its time, the plain
-   version's time and its bound.
+4. kernels: each dispatch kernel against its plain PyTorch version on
+   the card, on the largest inputs the dispatch path gave it plus ragged
+   and -1-floored cases (fit exact, score bitwise), with its time, the
+   plain version's time and its bound;
+5. mamba: falcon-mamba-7b at full width (64 layers, d_model 4096, bf16,
+   random weights from a seeded generator on the card) serves 8 requests
+   through ``RequestBatcher`` (4 slots) and ``greedy_generate``: 4
+   prompts of 512 tokens, then 4 of 1000, 32 new tokens each, each
+   ``greedy_generate`` call timed whole.  Exactly 64 ``selective_scan``
+   CUDA launches per prefill, and peak memory; then, outside the counted
+   run, the same batches with each model call timed between two
+   synchronises give prefill tokens/s, and decode tokens/s as the whole
+   call less its prefill; one profiled prefill and 8 decode steps split
+   device time into the scan, matrix products and the rest;
+6. the ``selective_scan`` kernel against its plain version on the
+   largest inputs the serve run gave it plus ragged L, Di and S, within
+   1e-4, with its times and bound;
+7. serving consistency: the full-width model cut to 4 layers in float32
+   (TF32 off): a 64-token prefill and 8 decode steps match the
+   train-mode forward's logits within 5e-4.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
-and every kernel must have launched on the main path.  The last two
-lines are the kernel table and ``{"ok": true, "device": ...}``; any
-failure exits non-zero before them.  Without a CUDA device, or outside a
+and every kernel must have launched on its own path (the dispatch
+kernels on phases 2-3, ``selective_scan`` on phase 5; each path's counts
+are set to 0 just before it and read just after).  The last two lines
+are the kernel table and ``{"ok": true, "device": ...}``; any failure
+exits non-zero before them.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -56,10 +74,18 @@ from repro_torch.core.dispatchers.vectorized import (  # noqa: E402
 from repro_torch.kernels import alloc_score as k_alloc  # noqa: E402
 from repro_torch.kernels import build, counters, ops, ref  # noqa: E402
 from repro_torch.kernels import ebf_shadow as k_ebf  # noqa: E402
+from repro_torch.kernels import selective_scan as k_scan  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
+                                 greedy_generate, make_prefill_step)
 
-# H100 SXM, NVIDIA's data sheet (see PERF.md): HBM rate, fp32 non-tensor rate
+# H100 SXM, NVIDIA's data sheet (see PERF.md): HBM rate, fp32 non-tensor
+# rate, and exponentials (16 SFU results per clock per SM, 132 SMs at the
+# 1.98 GHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 SETH = {"groups": {"seth": {"core": 4, "mem": 1024}}, "nodes": {"seth": 120}}
 RICC = {"groups": {"ricc": {"core": 8, "mem": 12288}},
@@ -68,17 +94,29 @@ SETH_JOBS = 10_000
 RICC_JOBS = 5_000
 RICC_MAX_EVENTS = 150
 
-# kernel -> (CUDA source, TPU kernel it replaces)
+MAMBA_ARCH = "falcon-mamba-7b"
+SERVE_SLOTS = 4
+SERVE_PROMPTS = (512, 1000)     # one batch of SERVE_SLOTS requests each
+SERVE_NEW_TOKENS = 32
+CHECK_LAYERS = 4                # depth of the float32 consistency model
+CHECK_PROMPT, CHECK_STEPS = 64, 8
+
+# kernel -> (CUDA source, TPU kernel it replaces, path that launches it)
 KERNELS = {
     "alloc_score_batch": ("src/repro_torch/kernels/csrc/alloc_score.cu",
-                          "src/repro/kernels/alloc_score.py:108"),
+                          "src/repro/kernels/alloc_score.py:108",
+                          "dispatch"),
     "alloc_score": ("src/repro_torch/kernels/csrc/alloc_score.cu",
-                    "src/repro/kernels/alloc_score.py:49"),
+                    "src/repro/kernels/alloc_score.py:49", "dispatch"),
     "ebf_shadow": ("src/repro_torch/kernels/csrc/ebf_shadow.cu",
-                   "src/repro/kernels/ebf_shadow.py:60"),
+                   "src/repro/kernels/ebf_shadow.py:60", "dispatch"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:61", "mamba"),
 }
+DISPATCH_KERNELS = {k for k, v in KERNELS.items() if v[2] == "dispatch"}
 # device-side function names, as the profiler reports them
-DEVICE_NAMES = {"alloc_score_batch_kernel", "ebf_shadow_kernel"}
+DEVICE_NAMES = {"alloc_score_batch_kernel", "ebf_shadow_kernel",
+                "selective_scan_kernel"}
 
 
 def log(obj) -> None:
@@ -277,9 +315,12 @@ def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
     return out
 
 
-def check_and_time(name, fn, plain, cases, timed):
+def check_and_time(name, fn, plain, cases, timed, tol=None, plain_reps=20,
+                   plain_rounds=7):
     """Hold the kernel ``fn`` against ``plain`` on every case (CUDA
-    tensors), then time both on the ``timed`` case."""
+    tensors), then time both on the ``timed`` case.  With ``tol`` None
+    the outputs must be equal (float32 bitwise); else within
+    ``atol = rtol = tol``."""
     err = 0.0
     for args in cases:
         got, want = fn(*args), plain(*args)
@@ -290,14 +331,19 @@ def check_and_time(name, fn, plain, cases, timed):
             if g.shape != w.shape or g.dtype != w.dtype:
                 raise AssertionError(f"{name}: {g.shape}/{g.dtype} != "
                                      f"{w.shape}/{w.dtype}")
-            if g.dtype == torch.float32:
+            if tol is not None:
+                if not torch.allclose(g, w, rtol=tol, atol=tol):
+                    raise AssertionError(f"{name}: not within {tol} of the "
+                                         f"plain version")
+            elif g.dtype == torch.float32:
                 if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
                     raise AssertionError(f"{name}: score not bitwise equal")
             elif not torch.equal(g, w):
                 raise AssertionError(f"{name}: integer output differs")
             if g.numel():
                 err = max(err, float((g.double() - w.double()).abs().max()))
-    return err, time_ms(lambda: fn(*timed)), time_ms(lambda: plain(*timed))
+    return (err, time_ms(lambda: fn(*timed)),
+            time_ms(lambda: plain(*timed), plain_reps, plain_rounds))
 
 
 def device_ms(fn, reps=20):
@@ -333,18 +379,28 @@ def time_ms(fn, reps=20, rounds=7):
 
 
 def bound(name, shapes):
-    """(bound_ms, bound_by): the larger of bytes / HBM rate and fp32-rate
-    operations / peak, for one call at these shapes (int32 and float32
-    are 4 bytes; inputs read once, outputs written once)."""
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and the
+    operations' time (fp32 operations at the fp32 peak; the scan's
+    exponentials at the SFU rate, whichever is longer), for one call at
+    these shapes (int32 and float32 are 4 bytes; inputs read once,
+    outputs written once)."""
+    t_exp = 0.0
     if name == "ebf_shadow":
         m, n, r = shapes
         nbytes = 4 * (n * r + m * n * r + r + m)
         ops = 2 * m * n * r                       # add + compare
+    elif name == "selective_scan":
+        bt, length, di, s = shapes                # float32, as the kernel
+        nbytes = 4 * (3 * bt * length * di + di * s + 2 * bt * length * s
+                      + di + bt * di * s)         # u, delta, y; A; B, C ...
+        ops = 6 * bt * length * di * s            # mul, 2 fma, mul, fma, add
+        t_exp = bt * length * di * s / SFU_EXP_PER_S
     else:
         j, n, r = shapes
         nbytes = 4 * (j * r + 2 * n * r + 2 * j * n)
         ops = 2 * j * n * r + 5 * n * r           # compares; score once
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / FP32_OPS_PER_S, t_exp)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -361,6 +417,317 @@ def floored_cases(rng, dev, n, r, j, m):
     deltas[:, down, :] = 0              # releases there are filtered
     t = [torch.from_numpy(x).to(dev) for x in (avail, cap, req, deltas)]
     return t
+
+
+def kernel_row(name, fn, plain, cases, timed, shapes, launches,
+               plain_device_reps=20, **check_kw):
+    """Check and time one kernel (``check_and_time``), log its numbers,
+    and return its row of the kernel table."""
+    err, ms, plain_ms = check_and_time(name, fn, plain, cases, timed,
+                                       **check_kw)
+    b_ms, b_by = bound(name, shapes)
+    src, replaces, _ = KERNELS[name]
+    log({"phase": "kernel", "name": name, "cases": len(cases),
+         "timed_shape": list(shapes), "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "max_abs_err": err,
+         "device_ms": device_ms(lambda: fn(*timed))[0],
+         "plain_device_ms": device_ms(lambda: plain(*timed),
+                                      plain_device_reps)[1]})
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+class ApplyTap:
+    """Wraps one model's ``apply``: counts calls and tokens by mode, and
+    keeps on the card a flag that every call's last-position logits were
+    finite, read once by ``close``.  Untimed, it adds no host synchronise
+    to the path; ``timed`` also takes each call's host time between two
+    synchronises, for the prefill/decode split."""
+
+    def __init__(self, model, timed: bool = False) -> None:
+        self.model, self.orig, self.timed = model, model.apply, timed
+        self.secs = {"prefill": 0.0, "decode": 0.0}
+        self.tokens = {"prefill": 0, "decode": 0}
+        self.calls = {"prefill": 0, "decode": 0}
+        self.finite = None
+        model.apply = self._wrapped
+
+    def _wrapped(self, params, batch, *, mode="train", cache=None):
+        if self.timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = self.orig(params, batch, mode=mode, cache=cache)
+        if self.timed:
+            torch.cuda.synchronize()
+            self.secs[mode] += time.perf_counter() - t0
+        self.tokens[mode] += batch["tokens"].numel()
+        self.calls[mode] += 1
+        ok = torch.isfinite(logits[:, -1]).all()
+        self.finite = ok if self.finite is None else self.finite & ok
+        return logits, cache
+
+    def snapshot(self) -> dict:
+        return {k: dict(getattr(self, k)) for k in ("secs", "tokens", "calls")}
+
+    def close(self) -> None:
+        del self.model.apply
+        if self.finite is None or not bool(self.finite):
+            raise AssertionError("mamba: non-finite logits")
+
+
+class ScanTap:
+    """Keeps (references to) the largest inputs ``ops.selective_scan``
+    was given, for the kernel check; launches nothing itself."""
+
+    def __init__(self) -> None:
+        self.orig, self.largest = ops.selective_scan, None
+        ops.selective_scan = self._observed
+
+    def _observed(self, *args):
+        if self.largest is None or args[0].numel() > self.largest[0].numel():
+            self.largest = args
+        return self.orig(*args)
+
+    def close(self) -> None:
+        ops.selective_scan = self.orig
+
+
+def serve_mamba(dev):
+    """Phase 5: falcon-mamba-7b at full width serves 8 requests in two
+    batches of 4 through the batcher and ``greedy_generate``.  Returns
+    the CUDA launches of the serve run and the scan's largest inputs."""
+    cfg = get_config(MAMBA_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    log({"phase": "mamba", "arch": cfg.name, "n_layers": cfg.n_layers,
+         "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+         "ssm_state": cfg.ssm_state, "dt_rank": cfg.dtr,
+         "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+         "weights_gb": sum(p.numel() * p.element_size()
+                           for p in params.parameters()) / 1e9,
+         "init_s": time.perf_counter() - t0})
+
+    rng = np.random.default_rng(0)
+    batcher = RequestBatcher(SERVE_SLOTS)
+    for length in SERVE_PROMPTS:
+        for i in range(SERVE_SLOTS):
+            batcher.submit(Request(
+                id=f"{length}-{i}", max_new_tokens=SERVE_NEW_TOKENS,
+                prompt=rng.integers(0, cfg.vocab_size, length).tolist()))
+    # warm-up outside every count and timer: the first call of each
+    # library (cuBLAS, the scan kernel) pays a one-time cost
+    greedy_generate(model, params, {"tokens": torch.zeros(
+        (SERVE_SLOTS, 8), dtype=torch.int32, device=dev)}, 2)
+
+    # the counted run: each greedy_generate call is timed whole, with one
+    # synchronise at each end and none inside, as a caller runs it
+    calls, tap = ApplyTap(model), ScanTap()
+    counters.reset_device_launches()
+    t0 = time.perf_counter()
+    served = []
+    while not batcher.idle:
+        admitted = batcher.admit()
+        prompts = torch.tensor([r.prompt for r in admitted],
+                               dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = greedy_generate(model, params, {"tokens": prompts},
+                              SERVE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t1
+        out = out.cpu()
+        if out.shape != (len(admitted), SERVE_NEW_TOKENS) or \
+                int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+            raise AssertionError(f"mamba: bad tokens {tuple(out.shape)}")
+        for step in range(out.shape[1]):
+            batcher.record_tokens({r.slot: int(out[k, step])
+                                   for k, r in enumerate(admitted)})
+        served.append((prompts, out, generate_s))
+    wall = time.perf_counter() - t0
+    launches = counters.device_launch_stats()
+    calls.close()
+    tap.close()
+
+    done = batcher.completed
+    if len(done) != 2 * SERVE_SLOTS or any(
+            len(r.generated) != SERVE_NEW_TOKENS for r in done):
+        raise AssertionError("mamba: not every request was served")
+    prefills = calls.calls["prefill"]
+    if prefills != len(SERVE_PROMPTS) or launches != {
+            "selective_scan": cfg.n_layers * prefills}:
+        raise AssertionError(f"mamba: {prefills} prefills, CUDA launches "
+                             f"{launches}; expected {cfg.n_layers} "
+                             f"selective_scan launches per prefill")
+
+    # the prefill/decode split: the same batches again, each model call
+    # between two synchronises.  Decode time is the counted run's whole
+    # call less this prefill; the per-call synced decode time shows what
+    # the synchronises cost.
+    timer = ApplyTap(model, timed=True)
+    tot = {"prefill_tokens": 0, "prefill_s": 0.0, "decode_tokens": 0,
+           "decode_s": 0.0, "decode_synced_s": 0.0}
+    for prompts, out, generate_s in served:
+        before = timer.snapshot()
+        again = greedy_generate(model, params, {"tokens": prompts},
+                                SERVE_NEW_TOKENS).cpu()
+        d = {k: {m: getattr(timer, k)[m] - before[k][m] for m in before[k]}
+             for k in before}
+        b, n = prompts.shape
+        prefill_s = d["secs"]["prefill"]
+        decode_tokens = d["tokens"]["decode"]
+        decode_s = generate_s - prefill_s
+        log({"phase": "mamba", "batch": b, "prompt_len": n,
+             "generate_s": generate_s, "prefill_s": prefill_s,
+             "prefill_tokens_per_s": b * n / prefill_s,
+             "decode_steps": d["calls"]["decode"], "decode_s": decode_s,
+             "decode_tokens_per_s": decode_tokens / decode_s,
+             "decode_synced_per_call_s": d["secs"]["decode"],
+             "decode_synced_per_call_tokens_per_s":
+             decode_tokens / d["secs"]["decode"],
+             "same_tokens_again": bool(torch.equal(again, out))})
+        tot["prefill_tokens"] += b * n
+        tot["prefill_s"] += prefill_s
+        tot["decode_tokens"] += decode_tokens
+        tot["decode_s"] += decode_s
+        tot["decode_synced_s"] += d["secs"]["decode"]
+    timer.close()
+
+    log({"phase": "mamba", "prefill_tokens_per_s":
+         tot["prefill_tokens"] / tot["prefill_s"]})
+    log({"phase": "mamba", "decode_tokens_per_s":
+         tot["decode_tokens"] / tot["decode_s"]})
+    log({"phase": "mamba", "decode_synced_per_call_tokens_per_s":
+         tot["decode_tokens"] / tot["decode_synced_s"]})
+    log({"phase": "mamba", "peak_memory_gb":
+         torch.cuda.max_memory_allocated() / 1e9})
+    log({"phase": "mamba", "selective_scan_cuda_launches":
+         launches["selective_scan"], "per_prefill":
+         launches["selective_scan"] / prefills})
+    log({"phase": "mamba", "requests": len(done), "wall_s": wall,
+         "generated_tokens": sum(len(r.generated) for r in done)})
+    profile_serving(model, params, dev, cfg.vocab_size)
+    return launches["selective_scan"], tap.largest
+
+
+MATMUL_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+def profile_serving(model, params, dev, vocab):
+    """Where the serving time goes: one prefill of the largest batch and
+    CHECK_STEPS decode steps under ``torch.profiler``, after the counted
+    run.  Device time is split into the scan kernel, matrix products
+    (cuBLAS kernels by name) and the rest, as shares of the host wall."""
+    rng = np.random.default_rng(4)
+    prompts = torch.from_numpy(rng.integers(
+        0, vocab, (SERVE_SLOTS, max(SERVE_PROMPTS))).astype(np.int32)).to(dev)
+    prefill = make_prefill_step(model)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(params, {"tokens": prompts})
+
+    def run_decode():
+        tok = torch.argmax(state["logits"], -1).to(torch.int32)[:, None]
+        for _ in range(CHECK_STEPS):
+            logits, state["cache"] = model.apply(
+                params, {"tokens": tok}, mode="decode", cache=state["cache"])
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+
+    for label, fn in (("prefill", run_prefill), ("decode", run_decode)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by = {"scan": 0.0, "matmul": 0.0, "other": 0.0}
+        top = []
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0.0)
+            if t <= 0:
+                continue
+            top.append((t, ev.key[:60]))
+            key = ev.key.lower()
+            kind = "scan" if "selective_scan_kernel" in key else \
+                "matmul" if any(m in key for m in MATMUL_NAMES) else "other"
+            by[kind] += t * 1e-6
+        log({"phase": "mamba_profile", "part": label, "wall_s": wall,
+             "device_busy_share": sum(by.values()) / wall,
+             **{f"{k}_share": v / wall for k, v in by.items()},
+             "top_kernels_ms": [[k, t * 1e-3] for t, k in sorted(top)[::-1][:6]]})
+
+
+def scan_case(rng, dev, bt, length, di, s):
+    """Random scan inputs on ``dev``: small positive delta, negative A."""
+    u = rng.standard_normal((bt, length, di))
+    dt = np.abs(rng.standard_normal((bt, length, di))) * 0.1
+    A = -np.abs(rng.standard_normal((di, s)))
+    B = rng.standard_normal((bt, length, s))
+    C = rng.standard_normal((bt, length, s))
+    D = rng.standard_normal((di,))
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                 for x in (u, dt, A, B, C, D))
+
+
+def check_scan(dev, served, launches):
+    """Phase 6: the scan kernel against its plain version on the serve
+    run's largest inputs plus ragged L, Di and S, within 1e-4."""
+    rng = np.random.default_rng(2)
+    cases = [served] + [scan_case(rng, dev, *shape) for shape in (
+        (1, 1, 77, 16), (2, 3, 8190, 1), (2, 1000, 4001, 16),
+        (4, 1000, 8192, 1))]
+    u, A = served[0], served[2]
+    shapes = tuple(u.shape) + (A.shape[1],)
+    return kernel_row("selective_scan", k_scan.selective_scan,
+                      ref.selective_scan_ref, cases, served, shapes,
+                      launches, tol=1e-4, plain_reps=2, plain_rounds=3,
+                      plain_device_reps=2)
+
+
+def check_consistency(dev):
+    """Phase 7: prefill + decode against teacher forcing, in float32 at
+    full width, cut to CHECK_LAYERS layers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(MAMBA_ARCH).replace(n_layers=CHECK_LAYERS,
+                                         dtype="float32")
+    model = build_model(cfg, dev)
+    params = model.init_params(seed=1)
+    rng = np.random.default_rng(3)
+    n = CHECK_PROMPT + CHECK_STEPS
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n)).astype(
+        np.int32)).to(dev)
+    full, _ = model.apply(params, {"tokens": toks})
+    last, cache = make_prefill_step(model)(
+        params, {"tokens": toks[:, :CHECK_PROMPT]})
+    errs = [float((last - full[:, CHECK_PROMPT - 1]).abs().max())]
+    ok = torch.allclose(last, full[:, CHECK_PROMPT - 1], atol=5e-4,
+                        rtol=5e-4)
+    for t in range(CHECK_PROMPT, n):
+        logits, cache = model.apply(params, {"tokens": toks[:, t:t + 1]},
+                                    mode="decode", cache=cache)
+        errs.append(float((logits[:, 0] - full[:, t]).abs().max()))
+        ok = ok and torch.allclose(logits[:, 0], full[:, t], atol=5e-4,
+                                   rtol=5e-4)
+    log({"phase": "consistency", "arch": cfg.name,
+         "cut": f"n_layers {CHECK_LAYERS} of "
+                f"{get_config(MAMBA_ARCH).n_layers}, float32",
+         "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+         "prompt": CHECK_PROMPT, "decode_steps": CHECK_STEPS,
+         "max_abs_err": max(errs), "logit_max_abs":
+         float(full.abs().max()), "tolerance": 5e-4})
+    if not ok:
+        raise AssertionError("consistency: decode logits differ from the "
+                             "train-mode forward by more than 5e-4")
 
 
 def main() -> int:
@@ -421,7 +788,7 @@ def run(dev) -> int:
         FirstInFirstOut(FirstFit()), "per_job")})
     seth_launches = counters.device_launch_stats()
     log({"phase": "seth", "cuda_launches": seth_launches})
-    missing = set(KERNELS) - set(seth_launches)
+    missing = DISPATCH_KERNELS - set(seth_launches)
     if missing:
         raise AssertionError(f"seth: no CUDA launch of {sorted(missing)}")
 
@@ -442,9 +809,9 @@ def run(dev) -> int:
     log({"phase": "main_path", "cuda_launches": launches,
          "ricc_cuda_launches": {k: v - seth_launches.get(k, 0)
                                 for k, v in launches.items()}})
-    missing = set(KERNELS) - set(launches)
+    missing = DISPATCH_KERNELS - set(launches)
     if missing:
-        raise AssertionError(f"main path: no CUDA launch of "
+        raise AssertionError(f"dispatch path: no CUDA launch of "
                              f"{sorted(missing)}")
 
     # ---- 4. kernels against their plain versions ---------------------
@@ -487,19 +854,13 @@ def run(dev) -> int:
                   cases, timed, tuple(timed[1].shape)))
 
     for name, fn, plain, cases, timed, shapes in specs:
-        err, ms, plain_ms = check_and_time(name, fn, plain, cases, timed)
-        b_ms, b_by = bound(name, shapes)
-        src, replaces = KERNELS[name]
-        log({"phase": "kernel", "name": name, "cases": len(cases),
-             "timed_shape": list(shapes), "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms,
-             "device_ms": device_ms(lambda: fn(*timed))[0],
-             "plain_device_ms": device_ms(lambda: plain(*timed))[1]})
-        table.append({"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": launches[name],
-                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None})
+        table.append(kernel_row(name, fn, plain, cases, timed, shapes,
+                                launches[name]))
+
+    # ---- 5.-7. falcon-mamba-7b serving -------------------------------
+    scan_launches, scan_inputs = serve_mamba(dev)
+    table.append(check_scan(dev, scan_inputs, scan_launches))
+    check_consistency(dev)
 
     log({"phase": "done", "total_s": time.perf_counter() - t_start})
     log(smi)

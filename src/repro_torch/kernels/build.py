@@ -9,8 +9,9 @@ imported: :func:`library` builds a source at its first use, and
 Libraries land in ``build/kernels/`` at the root of the checkout (listed
 in ``.gitignore``), named by a hash of source and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  The flags
-keep IEEE division (no ``--use_fast_math``): Best-Fit scores must be
-bitwise equal to the host's float32 arithmetic.
+keep IEEE division and accurate ``expf`` (no ``--use_fast_math``):
+Best-Fit scores must be bitwise equal to the host's float32 arithmetic,
+and the selective scan within 1e-4 of its plain version.
 """
 from __future__ import annotations
 
@@ -42,6 +43,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "ebf_shadow": {
         # avail, deltas, req, fits, M, N, R, device, stream
         "ebf_shadow_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "selective_scan": {
+        # u, delta, A, B, C, D, y, h_last, Bt, L, Di, S, device, stream
+        "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _P],
     },
 }
 
@@ -113,11 +119,14 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def check_input(t, name: str, ndim: int, device) -> None:
-    """What every kernel takes: an int32 tensor of rank ``ndim``,
-    contiguous, on ``device`` (a CPU tensor goes to the plain version)."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.int32")
+def check_input(t, name: str, ndim: int, device,
+                dtypes=(torch.int32,)) -> None:
+    """What every kernel takes: a tensor of one of ``dtypes`` and rank
+    ``ndim``, contiguous, on ``device`` (a CPU tensor goes to the plain
+    version)."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected one of "
+                        f"{', '.join(map(str, dtypes))}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
     if not t.is_contiguous():

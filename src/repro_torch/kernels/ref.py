@@ -7,6 +7,8 @@ them on the card.  Arithmetic is pinned to the host's numpy float32
 reconcile (``core/dispatchers/vectorized.py``): subtract as integers,
 convert, divide correctly rounded, and sum over resource types in
 r = 0..R-1 order — so Best-Fit ties break identically everywhere.
+The selective scan is float32 and is held within a tolerance instead:
+the kernel orders its sums differently.
 """
 from __future__ import annotations
 
@@ -68,3 +70,32 @@ def ebf_shadow_ref(avail: torch.Tensor, deltas: torch.Tensor,
     cum = avail[None, :, :] + torch.cumsum(deltas, dim=0, dtype=torch.int32)
     fit = (cum >= req[None, None, :]).all(dim=2)
     return fit.sum(dim=1, dtype=torch.int32)
+
+
+# ----------------------------------------------------------------------
+# selective_scan: Mamba-1 diagonal SSM recurrence
+# ----------------------------------------------------------------------
+def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, D: torch.Tensor):
+    """Sequential selective scan, computed in float32.
+
+    u, delta: [Bt, L, Di]; A: [Di, S]; B, C: [Bt, L, S]; D: [Di].
+    Returns (y f32[Bt, L, Di], h_last f32[Bt, Di, S]).
+
+    Recurrence (ZOH discretization, diagonal A):
+        dA_t = exp(delta_t[:, None] * A)            [Di, S]
+        dB_t = delta_t[:, None] * B_t[None, :]      [Di, S]
+        h_t  = dA_t * h_{t-1} + dB_t * u_t[:, None]
+        y_t  = (h_t @ C_t) + D * u_t
+    """
+    u, delta, A, B, C, D = (x.to(torch.float32)
+                            for x in (u, delta, A, B, C, D))
+    bt, length, di = u.shape
+    h = torch.zeros((bt, di, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for t in range(length):
+        d_t = delta[:, t, :, None]                       # [Bt, Di, 1]
+        h = torch.exp(d_t * A) * h + d_t * B[:, t, None, :] * u[:, t, :, None]
+        ys.append((h * C[:, t, None, :]).sum(-1) + D * u[:, t])
+    return torch.stack(ys, dim=1), h

@@ -4,8 +4,11 @@ Each plain PyTorch version (``repro_torch.kernels.ref``, what a wrapper
 runs for a CPU tensor) is held against ``repro.kernels.ref`` and the
 Pallas kernel in interpret mode, on the shape sweeps of
 ``test_kernels.py`` plus ragged N, J = 1, R in {1, 2, 4} and rows
-floored to -1.  Tolerance is 0 everywhere: fit masks and fit counts are
-integers, and Best-Fit ties depend on every bit of the score.
+floored to -1.  Tolerance is 0 for the dispatch kernels: fit masks and
+fit counts are integers, and Best-Fit ties depend on every bit of the
+score.  The selective scan is float32 and is held within 2e-4 (the
+reference's own tolerance, ``test_kernels.py``) on the CPU and 1e-4 on
+the card: the versions order their sums differently.
 
 The ``cuda`` tests hold each CUDA kernel against its plain version on
 the card and skip without one.  They need no JAX, so they also run on a
@@ -20,6 +23,7 @@ from repro_torch.kernels import alloc_score as t_alloc
 from repro_torch.kernels import counters, ops
 from repro_torch.kernels import ebf_shadow as t_ebf
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import selective_scan as t_scan
 
 RNG = np.random.default_rng(7)
 
@@ -33,6 +37,7 @@ def jx():
     from repro.kernels.alloc_score import (alloc_score_batch_pallas,
                                            alloc_score_pallas)
     from repro.kernels.ebf_shadow import ebf_shadow_pallas
+    from repro.kernels.selective_scan import selective_scan_pallas
 
     def np_out(*xs):
         return tuple(np.asarray(x) for x in xs)
@@ -53,6 +58,14 @@ def jx():
             a, d, q = map(jnp.asarray, (avail, deltas, req))
             return (np.asarray(ref.ebf_shadow_ref(a, d, q)),
                     np.asarray(ebf_shadow_pallas(a, d, q, interpret=True)))
+
+        def scan_ref(self, *args):
+            return np_out(*ref.selective_scan_ref(*map(jnp.asarray, args)))
+
+        def scan_pallas(self, *args, chunk, block_d):
+            return np_out(*selective_scan_pallas(
+                *map(jnp.asarray, args), chunk=chunk, block_d=block_d,
+                interpret=True))
     return J()
 
 
@@ -171,6 +184,83 @@ def test_ebf_shadow_plain_is_monotone():
     assert np.all(np.diff(fits) >= 0)
 
 
+# ---------------------------------------------------------------- scan
+def _scan_inputs(bt, length, di, s, rng=RNG):
+    """The reference's scan inputs (``test_kernels.py``): small positive
+    delta, negative A."""
+    u = rng.standard_normal((bt, length, di)).astype(np.float32)
+    dt = (np.abs(rng.standard_normal((bt, length, di))) * 0.1
+          ).astype(np.float32)
+    A = (-np.abs(rng.standard_normal((di, s)))).astype(np.float32)
+    B = rng.standard_normal((bt, length, s)).astype(np.float32)
+    C = rng.standard_normal((bt, length, s)).astype(np.float32)
+    D = rng.standard_normal((di,)).astype(np.float32)
+    return u, dt, A, B, C, D
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("bt,l,di,s,chunk,bd", [
+    (1, 64, 32, 4, 32, 32),
+    (2, 128, 64, 8, 64, 32),
+    (3, 256, 128, 16, 128, 64),
+])
+def test_selective_scan_plain_matches_reference(jx, bt, l, di, s, chunk, bd):
+    args = _scan_inputs(bt, l, di, s)
+    y, h = tref.selective_scan_ref(*map(torch.from_numpy, args))
+    for want in (jx.scan_ref(*args),
+                 jx.scan_pallas(*args, chunk=chunk, block_d=bd)):
+        _close(y, want[0], 2e-4)
+        _close(h, want[1], 2e-4)
+
+
+def test_selective_scan_plain_ragged_matches_reference(jx):
+    """L = 37 and Di = 48 divide no block: the reference's oracle."""
+    args = _scan_inputs(2, 37, 48, 5)
+    y, h = tref.selective_scan_ref(*map(torch.from_numpy, args))
+    want = jx.scan_ref(*args)
+    _close(y, want[0], 2e-4)
+    _close(h, want[1], 2e-4)
+
+
+def test_selective_scan_cpu_wrapper_casts_and_counts():
+    args = [torch.from_numpy(x) for x in _scan_inputs(2, 9, 24, 3)]
+    half = [x.to(torch.bfloat16) for x in args]
+    counters.reset_device_launches()
+    before = ops.launch_stats().get("selective_scan", 0)
+    y, h = ops.selective_scan(*half)
+    assert ops.launch_stats()["selective_scan"] - before == 1
+    assert counters.device_launch_stats() == {}
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (2, 9, 24) and h.shape == (2, 24, 3)
+    want = tref.selective_scan_ref(*[x.float() for x in half])
+    assert torch.equal(y, want[0]) and torch.equal(h, want[1])
+
+
+def test_selective_scan_refuses_bad_inputs():
+    u, dt, A, B, C, D = [torch.from_numpy(x)
+                         for x in _scan_inputs(1, 4, 8, 2)]
+    with pytest.raises(TypeError):
+        t_scan.selective_scan(u.int(), dt, A, B, C, D)
+    with pytest.raises(ValueError):                     # rank
+        t_scan.selective_scan(u[0], dt, A, B, C, D)
+    with pytest.raises(ValueError):                     # Di of A
+        t_scan.selective_scan(u, dt, A[:4], B, C, D)
+    with pytest.raises(ValueError):                     # S of C
+        t_scan.selective_scan(u, dt, A, B, C[..., :1], D)
+    with pytest.raises(ValueError):                     # not contiguous
+        t_scan.selective_scan(u, dt, A, B, torch.cat([C, C], -1)[..., ::2],
+                              D)
+    with pytest.raises(ValueError):                     # empty
+        t_scan.selective_scan(u[:, :0], dt[:, :0], A, B[:, :0], C[:, :0],
+                              D)
+    with pytest.raises(ValueError):                     # no kernel there
+        t_scan.selective_scan(*[x.to("meta") for x in (u, dt, A, B, C, D)])
+
+
 # ---------------------------------------------------------------- wrappers
 def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
     avail, cap = _system(50, 2, floor=2)
@@ -278,3 +368,25 @@ def test_ebf_shadow_cuda_refuses_wide_r(cuda):
                          torch.zeros((2, 4, r), dtype=torch.int32,
                                      device=cuda),
                          torch.zeros((r,), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,di,s", [(1, 1, 77, 16), (2, 3, 8190, 1),
+                                       (1, 1000, 333, 16), (3, 37, 48, 5),
+                                       (4, 1000, 8192, 16), (2, 130, 64, 8)])
+def test_selective_scan_cuda_equals_plain(cuda, bt, l, di, s):
+    args = [torch.from_numpy(x) for x in _scan_inputs(bt, l, di, s)]
+    counters.reset_device_launches()
+    y, h = t_scan.selective_scan(*[x.to(cuda) for x in args])
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {"selective_scan": 1}
+    yw, hw = tref.selective_scan_ref(*[x.to(cuda) for x in args])
+    _close(y.cpu(), yw.cpu(), 1e-4)
+    _close(h.cpu(), hw.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_cuda_refuses_wide_state(cuda):
+    args = _scan_inputs(1, 4, 8, t_scan.MAX_S + 1)
+    with pytest.raises(ValueError):
+        t_scan.selective_scan(*[torch.from_numpy(x).to(cuda) for x in args])
