@@ -16,10 +16,14 @@ and drives the simulator's main path on the card:
    submitted within the first hour, so the queue is thousands of jobs
    deep: vEBF-vBF, FIFO-vBF and per-job FIFO-vFF against their numpy
    twins, capped by ``max_events``;
-4. kernels: each dispatch kernel against its plain PyTorch version on
-   the card, on the largest inputs the dispatch path gave it plus ragged
-   and -1-floored cases (fit exact, score bitwise), with its time, the
-   plain version's time and its bound;
+4. kernels: the copies per ``ops`` call (memcpy records per direction,
+   from the profiler) and their bytes at the RICC peak; each dispatch
+   kernel against its plain PyTorch version on the card, on the largest
+   inputs each phase (Seth, RICC) gave it, in the kernel's own layout
+   (fit bits and one score row; releases grouped by node), plus ragged,
+   -1-floored and sparse edge cases (bits and counts exact, score
+   bitwise); per phase its launches, time, device time over 200 calls,
+   the plain version's time and its bound;
 5. mamba: falcon-mamba-7b at full width (64 layers, d_model 4096, bf16,
    random weights from a seeded generator on the card) serves 8 requests
    through ``RequestBatcher`` (4 slots) and ``greedy_generate``: 4
@@ -115,7 +119,7 @@ KERNELS = {
 }
 DISPATCH_KERNELS = {k for k, v in KERNELS.items() if v[2] == "dispatch"}
 # device-side function names, as the profiler reports them
-DEVICE_NAMES = {"alloc_score_batch_kernel", "ebf_shadow_kernel",
+DEVICE_NAMES = {"alloc_score_kernel", "ebf_shadow_kernel",
                 "selective_scan_kernel"}
 
 
@@ -180,7 +184,7 @@ class Tap:
 
     SIZE = {"alloc_score": lambda a: a[0].shape[0],
             "alloc_score_batch": lambda a: a[2].shape[0],
-            "ebf_shadow_fits": lambda a: a[1].shape[0]}
+            "ebf_shadow_fits": lambda a: a[1].times.shape[0]}
 
     def __init__(self, ops) -> None:
         self.ops = ops
@@ -315,10 +319,9 @@ def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
     return out
 
 
-def check_and_time(name, fn, plain, cases, timed, tol=None, plain_reps=20,
-                   plain_rounds=7):
+def check(name, fn, plain, cases, tol=None):
     """Hold the kernel ``fn`` against ``plain`` on every case (CUDA
-    tensors), then time both on the ``timed`` case.  With ``tol`` None
+    tensors); returns the largest absolute difference.  With ``tol`` None
     the outputs must be equal (float32 bitwise); else within
     ``atol = rtol = tol``."""
     err = 0.0
@@ -342,8 +345,7 @@ def check_and_time(name, fn, plain, cases, timed, tol=None, plain_reps=20,
                 raise AssertionError(f"{name}: integer output differs")
             if g.numel():
                 err = max(err, float((g.double() - w.double()).abs().max()))
-    return (err, time_ms(lambda: fn(*timed)),
-            time_ms(lambda: plain(*timed), plain_reps, plain_rounds))
+    return err
 
 
 def device_ms(fn, reps=20):
@@ -385,58 +387,120 @@ def bound(name, shapes):
     these shapes (int32 and float32 are 4 bytes; inputs read once,
     outputs written once)."""
     t_exp = 0.0
-    if name == "ebf_shadow":
-        m, n, r = shapes
-        nbytes = 4 * (n * r + m * n * r + r + m)
-        ops = 2 * m * n * r                       # add + compare
+    if name == "ebf_shadow":                      # sparse, grouped by node
+        m, n, r, nnz = shapes
+        nbytes = 4 * (n * r + r + n + 1 + nnz * (1 + r) + m)
+        ops = 2 * (n + nnz) * r + m               # adds, compares; scan
     elif name == "selective_scan":
         bt, length, di, s = shapes                # float32, as the kernel
         nbytes = 4 * (3 * bt * length * di + di * s + 2 * bt * length * s
                       + di + bt * di * s)         # u, delta, y; A; B, C ...
         ops = 6 * bt * length * di * s            # mul, 2 fma, mul, fma, add
         t_exp = bt * length * di * s / SFU_EXP_PER_S
-    else:
+    else:                                         # fit bits + score [N]
         j, n, r = shapes
-        nbytes = 4 * (j * r + 2 * n * r + 2 * j * n)
-        ops = 2 * j * n * r + 5 * n * r           # compares; score once
+        nbytes = 4 * (j * r + 2 * n * r + j * -(-n // 32) + n)
+        ops = j * n * r + 5 * n * r               # compares; score once
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = max(ops / FP32_OPS_PER_S, t_exp)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def floored_cases(rng, dev, n, r, j, m):
-    """Ragged N and -1-floored rows (ineligible nodes), J = 1 included."""
-    cap = rng.integers(1, 16, (n, r)).astype(np.int32)
-    avail = rng.integers(0, 16, (n, r)).clip(0, cap).astype(np.int32)
-    down = rng.choice(n, size=max(1, n // 10), replace=False)
-    avail[down] = -1
-    req = rng.integers(0, 6, (j, r)).astype(np.int32)
-    req[:, 0] = 0                       # floored rows must not fit anyway
-    deltas = rng.integers(0, 3, (m, n, r)).astype(np.int32)
-    deltas[:, down, :] = 0              # releases there are filtered
-    t = [torch.from_numpy(x).to(dev) for x in (avail, cap, req, deltas)]
-    return t
-
-
-def kernel_row(name, fn, plain, cases, timed, shapes, launches,
-               plain_device_reps=20, **check_kw):
-    """Check and time one kernel (``check_and_time``), log its numbers,
-    and return its row of the kernel table."""
-    err, ms, plain_ms = check_and_time(name, fn, plain, cases, timed,
-                                       **check_kw)
-    b_ms, b_by = bound(name, shapes)
+def kernel_rows(name, fn, plain, phase_inputs, extra, launches, shapes_of,
+                tol=None, reps=200, plain_reps=20, plain_rounds=7,
+                plain_device_reps=20):
+    """Check one kernel against its plain version on every phase's largest
+    inputs and on ``extra`` cases, then, per phase, time both at that
+    phase's inputs and log the phase's row (``launches`` maps phase to
+    its CUDA launches).  Returns the kernel-table row of the last phase
+    (the largest inputs), with the launches of all phases."""
+    err = check(name, fn, plain, list(phase_inputs.values()) + extra, tol)
     src, replaces, _ = KERNELS[name]
-    log({"phase": "kernel", "name": name, "cases": len(cases),
-         "timed_shape": list(shapes), "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": b_ms, "max_abs_err": err,
-         "device_ms": device_ms(lambda: fn(*timed))[0],
-         "plain_device_ms": device_ms(lambda: plain(*timed),
-                                      plain_device_reps)[1]})
+    for phase, args in phase_inputs.items():
+        shapes = shapes_of(args)
+        ms = time_ms(lambda: fn(*args), reps)
+        plain_ms = time_ms(lambda: plain(*args), plain_reps, plain_rounds)
+        ours = device_ms(lambda: fn(*args), reps)[0]
+        b_ms, b_by = bound(name, shapes)
+        log({"phase": "kernel", "name": name, "path": phase,
+             "cases": len(phase_inputs) + len(extra), "shape": list(shapes),
+             "launches": launches.get(phase, 0), "ms": ms,
+             "plain_ms": plain_ms,
+             "device_ms": ours if ours > 0 else "not measured",
+             "plain_device_ms": device_ms(lambda: plain(*args),
+                                          plain_device_reps)[1],
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err})
     return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(launches.values()),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def to_dev(x, dev):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+
+def floored_system(rng, n, r, j):
+    """Ragged N, -1-floored rows (ineligible nodes) and zero request
+    columns, as host arrays (avail, capacity, req [J, R])."""
+    cap = rng.integers(1, 16, (n, r))
+    avail = rng.integers(0, 16, (n, r)).clip(0, cap)
+    avail[rng.choice(n, size=max(1, n // 10), replace=False)] = -1
+    req = rng.integers(0, 6, (j, r))
+    req[::2, 0] = 0                     # floored rows must not fit anyway
+    return avail, cap, req
+
+
+def release_tuples(rng, n, r, n_rel, n_times, k_max, low=0, high=3):
+    """Sorted ``(time, nodes, vec)`` releases: k <= n distinct nodes per
+    job, times from ``n_times`` values (ties)."""
+    out = []
+    for _ in range(n_rel):
+        k = int(rng.integers(1, min(k_max, n) + 1))
+        out.append((int(rng.integers(0, n_times)),
+                    rng.choice(n, size=k, replace=False),
+                    rng.integers(low, high, r)))
+    out.sort(key=lambda e: e[0])
+    return out
+
+
+def ebf_args(avail, rel, req, dev):
+    """The ebf_shadow kernel's arguments: avail, node_ptr, entry_m,
+    entry_vec, req on ``dev``, and M."""
+    r = np.shape(avail)[1]
+    return (to_dev(avail, dev), to_dev(rel.node_ptr, dev),
+            to_dev(rel.entry_m, dev),
+            to_dev(np.reshape(rel.entry_vec, (-1, r)), dev),
+            to_dev(req, dev), rel.times.shape[0])
+
+
+def transfers(name, call, calls=20):
+    """Copies per ``ops`` call, read from the profiler (memcpy records by
+    direction; more than one each way per call fails), and the call's
+    host wall time (unprofiled), in ms."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    count = {"h2d": 0, "d2h": 0}
+    for ev in prof.key_averages():
+        key = ev.key.lower()
+        for kind, tag in (("h2d", "htod"), ("d2h", "dtoh")):
+            if "memcpy" in key and tag in key:
+                count[kind] += ev.count
+    if max(count.values()) > calls:
+        raise AssertionError(f"{name}: more than one copy each way per "
+                             f"call: {count} in {calls} calls")
+    return {f"{k}_copies_per_call": v / calls for k, v in count.items()} | {
+        "ops_call_ms": wall_ms}
 
 
 class ApplyTap:
@@ -684,12 +748,12 @@ def check_scan(dev, served, launches):
     cases = [served] + [scan_case(rng, dev, *shape) for shape in (
         (1, 1, 77, 16), (2, 3, 8190, 1), (2, 1000, 4001, 16),
         (4, 1000, 8192, 1))]
-    u, A = served[0], served[2]
-    shapes = tuple(u.shape) + (A.shape[1],)
-    return kernel_row("selective_scan", k_scan.selective_scan,
-                      ref.selective_scan_ref, cases, served, shapes,
-                      launches, tol=1e-4, plain_reps=2, plain_rounds=3,
-                      plain_device_reps=2)
+    return kernel_rows("selective_scan", k_scan.selective_scan,
+                       ref.selective_scan_ref, {"serve": served}, cases[1:],
+                       {"serve": launches},
+                       lambda a: tuple(a[0].shape) + (a[2].shape[1],),
+                       tol=1e-4, reps=20, plain_reps=2, plain_rounds=3,
+                       plain_device_reps=2)
 
 
 def check_consistency(dev):
@@ -816,46 +880,94 @@ def run(dev) -> int:
 
     # ---- 4. kernels against their plain versions ---------------------
     rng = np.random.default_rng(0)
-    put = lambda xs: tuple(
-        torch.from_numpy(np.array(x, dtype=np.int32)).to(dev) for x in xs)
     table = []
+    phase_launches = {
+        name: {"seth": seth_launches.get(name, 0),
+               "ricc": launches.get(name, 0) - seth_launches.get(name, 0)}
+        for name in DISPATCH_KERNELS}
 
-    def main_inputs(name):
-        return [put(tap.inputs[(ph, name)][1]) for ph in ("seth", "ricc")
-                if (ph, name) in tap.inputs]
+    def seen(name, as_args):
+        return {ph: as_args(*tap.inputs[(ph, name)][1])
+                for ph in ("seth", "ricc") if (ph, name) in tap.inputs}
 
-    # alloc_score_batch: (avail, capacity, req[J, R])
-    seen = main_inputs("alloc_score_batch")
-    timed = max(seen, key=lambda x: x[2].shape[0])
-    cases = list(seen)
-    for n, j in ((1000, 1), (129, 37), (1024, 4097)):
-        a, c, q, _ = floored_cases(rng, dev, n, 2, j, 1)
-        cases.append((a, c, q))
-    specs = [("alloc_score_batch", k_alloc.alloc_score_batch,
-              ref.alloc_score_batch_ref, cases, timed,
-              (timed[2].shape[0],) + tuple(timed[0].shape))]
-    # alloc_score: (avail, capacity, req[R])
-    seen = main_inputs("alloc_score")
-    timed = max(seen, key=lambda x: x[0].shape[0])
-    cases = list(seen)
-    for n in (1000, 129, 1):
-        a, c, q, _ = floored_cases(rng, dev, n, 2, 1, 1)
-        cases.append((a, c, q[0]))
-    specs.append(("alloc_score", k_alloc.alloc_score, ref.alloc_score_ref,
-                  cases, timed, (1,) + tuple(timed[0].shape)))
-    # ebf_shadow: (avail, deltas[M, N, R], req[R])
-    seen = main_inputs("ebf_shadow_fits")
-    timed = max(seen, key=lambda x: x[1].shape[0])
-    cases = list(seen)
-    for n, m in ((1000, 3), (129, 64), (1024, 1001)):
-        a, _, q, d = floored_cases(rng, dev, n, 2, 1, m)
-        cases.append((a, d, q[0]))
-    specs.append(("ebf_shadow", k_ebf.ebf_shadow, ref.ebf_shadow_ref,
-                  cases, timed, tuple(timed[1].shape)))
+    # copies per ops call and their bytes at the RICC peak, against the
+    # earlier design's (three H2D copies; fit and score [J, N] back; dense
+    # deltas [M, N, R] in)
+    avail, cap, req = tap.inputs[("ricc", "alloc_score_batch")][1]
+    (n, r), j = np.shape(avail), np.shape(req)[0]
+    w = -(-n // 32)
+    log({"phase": "transfers", "op": "alloc_score_batch", "J": j, "N": n,
+         "R": r, "h2d_bytes": 4 * (2 * n * r + j * r),
+         "d2h_bytes": 4 * (j * w + n), "earlier_h2d_copies": 3,
+         "earlier_d2h_copies": 2, "earlier_d2h_bytes": 8 * j * n,
+         **transfers("alloc_score_batch",
+                     lambda: ops.alloc_score_batch(avail, cap, req, dev))})
+    avail1, cap1, req1 = tap.inputs[("ricc", "alloc_score")][1]
+    log({"phase": "transfers", "op": "alloc_score", "N": n,
+         "h2d_bytes": 4 * (2 * n * r + r), "d2h_bytes": 4 * (w + n),
+         "earlier_d2h_bytes": 8 * n,
+         **transfers("alloc_score",
+                     lambda: ops.alloc_score(avail1, cap1, req1, dev))})
+    avail2, rel, head = tap.inputs[("ricc", "ebf_shadow_fits")][1]
+    m, nnz = rel.times.shape[0], rel.entry_m.shape[0]
+    log({"phase": "transfers", "op": "ebf_shadow_fits", "M": m, "N": n,
+         "nnz": nnz, "h2d_bytes": 4 * (n * r + r + n + 1 + nnz * (1 + r)),
+         "d2h_bytes": 4 * m, "earlier_h2d_copies": 3,
+         "earlier_h2d_bytes": 4 * (n * r + m * n * r + r),
+         **transfers("ebf_shadow_fits",
+                     lambda: ops.ebf_shadow_fits(avail2, rel, head, dev))})
 
-    for name, fn, plain, cases, timed, shapes in specs:
-        table.append(kernel_row(name, fn, plain, cases, timed, shapes,
-                                launches[name]))
+    # alloc_score_batch: (avail, capacity, req [J, R]) -> (bits, score [N])
+    extra = [tuple(to_dev(x, dev) for x in floored_system(rng, n, 2, j))
+             for n in (1, 31, 32, 33, 129, 1000) for j in (1, 37)]
+    extra += [tuple(to_dev(x, dev) for x in floored_system(rng, *nrj))
+              for nrj in ((1024, 2, 4097), (4097, 2, 70000), (77, 8, 5))]
+    table.append(kernel_rows(
+        "alloc_score_batch", k_alloc.alloc_score_batch,
+        ref.alloc_score_packed_ref,
+        seen("alloc_score_batch",
+             lambda a, c, q: tuple(to_dev(x, dev) for x in (a, c, q))),
+        extra, phase_launches["alloc_score_batch"],
+        lambda a: (a[2].shape[0],) + tuple(a[0].shape)))
+
+    # alloc_score: (avail, capacity, req [R]) -> (bits [W], score [N])
+    def alloc_one_plain(a, c, q):
+        bits, score = ref.alloc_score_packed_ref(a, c, q.view(1, -1))
+        return bits[0], score
+    extra = []
+    for n in (1, 31, 33, 1000):
+        a, c, q = floored_system(rng, n, 2, 1)
+        extra.append((to_dev(a, dev), to_dev(c, dev), to_dev(q[0], dev)))
+    table.append(kernel_rows(
+        "alloc_score", k_alloc.alloc_score, alloc_one_plain,
+        seen("alloc_score",
+             lambda a, c, q: tuple(to_dev(x, dev) for x in (a, c, q))),
+        extra, phase_launches["alloc_score"],
+        lambda a: (1,) + tuple(a[0].shape)))
+
+    # ebf_shadow: releases grouped by node -> fits [M]
+    extra = []
+    for n, r, n_rel, n_times, k_max, low in (
+            (40, 2, 30, 3, 6, 0),        # several entries of a node in a group
+            (1000, 2, 5, 4, 2, 0),       # nodes with no entries
+            (129, 3, 12, 1, 4, 0),       # M = 1
+            (50, 2, 25, 6, 4, -3),       # negative deltas
+            (10, 2, 0, 1, 3, 0),         # no releases: M = 0
+            (300, 2, 40, 10, 4, 0),      # malformed: a group index of M
+            (2000, 2, 12000, 6000, 4, -1)):  # M past the shared limit
+        a, _, q = floored_system(rng, n, r, 1)
+        rel = k_ebf.sparse_releases(n, release_tuples(
+            rng, n, r, n_rel, n_times, k_max, low))
+        if (n, n_rel) == (300, 40):      # both versions give counts of -1
+            rel.entry_m[-1] = rel.times.shape[0]
+        extra.append(ebf_args(a, rel, q[0], dev))
+    if extra[-1][-1] <= k_ebf.shared_m():
+        raise AssertionError("ebf_shadow: no case past the shared limit")
+    table.append(kernel_rows(
+        "ebf_shadow", k_ebf.ebf_shadow, ref.ebf_shadow_sparse_ref,
+        seen("ebf_shadow_fits", lambda a, rl, q: ebf_args(a, rl, q, dev)),
+        extra, phase_launches["ebf_shadow"],
+        lambda a: (a[5],) + tuple(a[0].shape) + (a[2].shape[0],)))
 
     # ---- 5.-7. falcon-mamba-7b serving -------------------------------
     scan_launches, scan_inputs = serve_mamba(dev)

@@ -7,10 +7,10 @@ inner loops run as kernels through ``repro_torch.kernels.ops``:
 
 * FF/BF node selection  -> ``alloc_score_batch`` kernel: the WHOLE queue
   scored against all nodes in ONE launch (``req [J, R]`` × ``avail
-  [N, R]`` -> fit/score ``[J, N]``), followed by a host-side greedy
-  commit (:class:`BatchProbe`) that reproduces the sequential FF/BF
-  decisions exactly.  Kernel launches per dispatch event drop from
-  O(queue) to O(1).
+  [N, R]`` -> fit bits ``[J, ceil(N/32)]`` and score ``[N]``), followed
+  by a host-side greedy commit (:class:`BatchProbe`) that reproduces the
+  sequential FF/BF decisions exactly.  Kernel launches per dispatch event
+  drop from O(queue) to O(1).
 * EBF shadow time       -> ``ebf_shadow`` kernel (release prefix scan)
 
 The legacy per-job path (one ``alloc_score`` launch per queued job) is
@@ -36,10 +36,11 @@ class BatchProbe:
     """One-launch queue×node scorer with host-side reconciliation.
 
     Built once per dispatch event from the frozen context: a single
-    ``alloc_score_batch`` launch yields ``fit [J, N]`` / ``score [J, N]``
-    against the event's *base* availability.  As the greedy commit
-    consumes nodes (or EBF shadows/reservations add them back), callers
-    probe with the *current* availability; only the nodes whose rows
+    ``alloc_score_batch`` launch yields the fit bits ``[J, ceil(N/32)]``
+    and the load score ``[N]`` against the event's *base* availability;
+    a probe unpacks only its own row.  As the greedy commit consumes
+    nodes (or EBF shadows/reservations add them back), callers probe with
+    the *current* availability; only the nodes whose rows
     differ from the base are re-evaluated — in numpy, on the host, with
     the kernel's exact float32 arithmetic — so no further launches are
     needed and the sequential trace is reproduced bit-for-bit.
@@ -51,19 +52,16 @@ class BatchProbe:
         self.req = ctx.req
         self.n_nodes = ctx.n_nodes
         self.capacity = ctx.capacity
-        fit, score = ops.alloc_score_batch(ctx.avail, ctx.capacity, ctx.req,
-                                           device)
-        self.fit0 = fit.astype(bool)                     # [J, N]
-        self.score0 = score                              # [J, N] float32
+        self.bits0, self.score0 = ops.alloc_score_batch(
+            ctx.avail, ctx.capacity, ctx.req, device)   # [J, W] u32, [N] f32
 
     # ------------------------------------------------------------------
     def find(self, qi: int, avail: np.ndarray) -> Optional[np.ndarray]:
         """``find_nodes`` semantics for queue index ``qi`` against an
         arbitrary availability matrix — zero kernel launches."""
         changed = np.nonzero(np.any(avail != self.base, axis=1))[0]
-        fit = self.fit0[qi]
+        fit = ops.fit_row(self.bits0[qi], self.base.shape[0])
         if changed.size:
-            fit = fit.copy()
             fit[changed] = np.all(
                 avail[changed] >= self.req[qi][None, :], axis=1)
         need = int(self.n_nodes[qi])
@@ -71,7 +69,7 @@ class BatchProbe:
             return None
         if self.policy == "FF":
             return np.nonzero(fit)[0][:need]
-        score = self.score0[qi]
+        score = self.score0
         if changed.size:
             score = score.copy()
             cap = np.maximum(self.capacity[changed], 1).astype(np.float32)

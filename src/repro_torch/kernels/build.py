@@ -36,13 +36,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "alloc_score": {
-        # req, avail, capacity, fit, score, J, N, R, device, stream
-        "alloc_score_batch_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _P],
+        # req, avail, capacity, bits, score, J, N, R, device, stream
+        "alloc_score_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "ebf_shadow": {
-        # avail, deltas, req, fits, M, N, R, device, stream
-        "ebf_shadow_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # avail, req, node_ptr, entry_m, entry_vec, fits, M, N, R, nnz,
+        # device, stream
+        "ebf_shadow_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
+        "ebf_shadow_shared_m": [],
     },
     "selective_scan": {
         # u, delta, A, B, C, D, y, h_last, Bt, L, Di, S, device, stream

@@ -6,12 +6,14 @@ running jobs in estimated-release order, accumulate freed resources, and
 find the first prefix at which the blocked head job fits.
 
 * :func:`ebf_shadow` — the kernel wrapper.  Release events grouped by
-  distinct release time form a dense delta tensor ``deltas[M, N, R]``;
-  the kernel (``csrc/ebf_shadow.cu``) counts, per release prefix, the
-  nodes whose cumulative availability fits the head's request.
+  distinct release time form M groups; the releases arrive sparse,
+  grouped by node (:class:`SparseReleases`), and the kernel
+  (``csrc/ebf_shadow.cu``) counts, per group prefix, the nodes whose
+  cumulative availability fits the head's request.
 * :func:`shadow_from_releases` — the host-path driver on top of it:
-  groups the ``(time, nodes, vec)`` release tuples, launches the
-  fit-count scan (``ops.ebf_shadow_fits``), and returns ``(shadow_time,
+  turns the ``(time, nodes, vec)`` release tuples into that layout
+  (:func:`sparse_releases`), launches the fit-count scan
+  (``ops.ebf_shadow_fits``), and returns ``(shadow_time,
   shadow_avail)`` — what ``VectorizedEasyBackfilling`` calls per blocked
   head.
 
@@ -20,7 +22,7 @@ timestamp is applied before the fit test.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,28 +33,45 @@ from . import build, counters, ref
 MAX_R = 8
 
 
-def ebf_shadow(avail: torch.Tensor, deltas: torch.Tensor,
-               req: torch.Tensor) -> torch.Tensor:
-    """fits int32[M]: fitting-node count per release prefix.
+def shared_m() -> int:
+    """Largest group count whose per-group fit changes the kernel sums in
+    shared memory (``kSharedM`` in the source, read from the built
+    library); above it, in the output."""
+    return build.library("ebf_shadow").ebf_shadow_shared_m()
 
-    ``avail int32[N, R]``, ``deltas int32[M, N, R]``, ``req int32[R]``.
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain version.
+
+def ebf_shadow(avail: torch.Tensor, node_ptr: torch.Tensor,
+               entry_m: torch.Tensor, entry_vec: torch.Tensor,
+               req: torch.Tensor, m: int) -> torch.Tensor:
+    """fits int32[M]: fitting-node count per release-group prefix.
+
+    ``avail int32[N, R]``, ``req int32[R]``; node n's releases are entries
+    ``node_ptr[n] .. node_ptr[n+1]-1`` (``node_ptr int32[N+1]``, from 0 to
+    nnz), each a group index ``entry_m int32[nnz]`` in ``[0, m)``, not
+    decreasing within a node, and a vector ``entry_vec int32[nnz, R]``.
+    Releases that break these rules are malformed, and then every count
+    is -1 (nothing is read out of bounds).  A CUDA tensor launches the
+    kernel (or raises); a CPU tensor runs the plain version.
     """
     dev = avail.device
     build.check_input(avail, "avail", 2, dev)
-    build.check_input(deltas, "deltas", 3, dev)
+    build.check_input(node_ptr, "node_ptr", 1, dev)
+    build.check_input(entry_m, "entry_m", 1, dev)
+    build.check_input(entry_vec, "entry_vec", 2, dev)
     build.check_input(req, "req", 1, dev)
-    m, n, r = deltas.shape
-    if (n, r) != tuple(avail.shape) or req.shape[0] != r or r < 1:
-        raise ValueError(f"shapes avail {tuple(avail.shape)}, deltas "
-                         f"{tuple(deltas.shape)}, req {tuple(req.shape)}")
+    n, r = avail.shape
+    nnz = entry_m.shape[0]
+    if (r < 1 or req.shape[0] != r or node_ptr.shape[0] != n + 1
+            or tuple(entry_vec.shape) != (nnz, r) or m < 0):
+        raise ValueError(f"shapes avail {tuple(avail.shape)}, node_ptr "
+                         f"{tuple(node_ptr.shape)}, entry_m ({nnz},), "
+                         f"entry_vec {tuple(entry_vec.shape)}, req "
+                         f"{tuple(req.shape)}, m {m}")
     if not build.launch_target(dev):
-        return ref.ebf_shadow_ref(avail, deltas, req)
+        return ref.ebf_shadow_sparse_ref(avail, node_ptr, entry_m, entry_vec,
+                                         req, m)
     if r > MAX_R:
         raise ValueError(f"ebf_shadow kernel takes R <= {MAX_R}, got {r}")
-    if n == 0:                     # no node fits any prefix
-        return torch.zeros((m,), dtype=torch.int32, device=dev)
     fits = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return fits
@@ -60,8 +79,9 @@ def ebf_shadow(avail: torch.Tensor, deltas: torch.Tensor,
     index = build.device_index(dev)
     stream = torch.cuda.current_stream(index).cuda_stream
     build.check(lib.ebf_shadow_launch(
-        avail.data_ptr(), deltas.data_ptr(), req.data_ptr(),
-        fits.data_ptr(), m, n, r, index, stream), "ebf_shadow")
+        avail.data_ptr(), req.data_ptr(), node_ptr.data_ptr(),
+        entry_m.data_ptr(), entry_vec.data_ptr(), fits.data_ptr(), m, n, r,
+        nnz, index, stream), "ebf_shadow")
     counters.record_device("ebf_shadow")
     return fits
 
@@ -69,23 +89,43 @@ def ebf_shadow(avail: torch.Tensor, deltas: torch.Tensor,
 # ----------------------------------------------------------------------
 # host path: release tuples -> (shadow_time, shadow_avail)
 # ----------------------------------------------------------------------
-def group_releases(avail: np.ndarray, releases: Sequence[Tuple]
-                   ) -> Tuple[List[int], np.ndarray]:
+class SparseReleases(NamedTuple):
+    """Sorted release tuples, grouped by distinct time and by node."""
+    times: np.ndarray        # int64[M]   distinct release times, ascending
+    node_ptr: np.ndarray     # int64[N+1] node n's entries: ptr[n]..ptr[n+1]-1
+    entry_node: np.ndarray   # int64[nnz] node of each entry (host only)
+    entry_m: np.ndarray      # int64[nnz] group index, rising within a node
+    entry_vec: np.ndarray    # [nnz, R]   released per-node vector
+
+
+def sparse_releases(n_nodes: int, releases: Sequence[Tuple]
+                    ) -> SparseReleases:
     """Group sorted ``(time, node_idx, per_node_vec)`` release tuples by
-    distinct release time into ``(times, deltas[M, N, R])`` — the dense
-    input layout of the prefix-scan kernel."""
-    times: List[int] = []
-    deltas: List[np.ndarray] = []
-    cur_t = None
+    distinct release time (group m) and by node, with a stable sort by
+    node over the release order, so a node's entries keep rising m.  The
+    nodes of one tuple are distinct (a job holds each of its nodes
+    once)."""
+    ts, lens, nodes, vecs = [], [], [], []
     for t, idx, vec in releases:
-        if t != cur_t:
-            times.append(t)
-            deltas.append(np.zeros_like(avail))
-            cur_t = t
-        deltas[-1][idx] += vec[None, :]
-    if not deltas:
-        return times, np.zeros((0,) + avail.shape, dtype=np.int32)
-    return times, np.stack(deltas).astype(np.int32)
+        ts.append(t)
+        lens.append(len(idx))
+        nodes.append(idx)
+        vecs.append(vec)
+    ts = np.asarray(ts, dtype=np.int64)
+    first = np.ones(ts.shape, dtype=bool)
+    first[1:] = ts[1:] != ts[:-1]
+    group = np.cumsum(first) - 1
+    node = np.concatenate(nodes).astype(np.int64) if nodes \
+        else np.zeros(0, np.int64)
+    if node.size and (node.min() < 0 or node.max() >= n_nodes):
+        raise ValueError(f"release node ids outside [0, {n_nodes})")
+    order = np.argsort(node, kind="stable")
+    node_ptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.cumsum(np.bincount(node, minlength=n_nodes), out=node_ptr[1:])
+    return SparseReleases(
+        times=ts[first], node_ptr=node_ptr, entry_node=node[order],
+        entry_m=np.repeat(group, lens)[order],
+        entry_vec=np.repeat(np.asarray(vecs), lens, axis=0)[order])
 
 
 def shadow_from_releases(avail: np.ndarray, head_vec: np.ndarray,
@@ -99,11 +139,13 @@ def shadow_from_releases(avail: np.ndarray, head_vec: np.ndarray,
         return None, None
     from . import ops  # local: ops imports this module at load time
 
-    times, deltas = group_releases(avail, releases)
-    fits = ops.ebf_shadow_fits(avail, deltas, head_vec, device)
+    rel = sparse_releases(avail.shape[0], releases)
+    fits = ops.ebf_shadow_fits(avail, rel, head_vec, device)
     hit = np.nonzero(fits >= n_nodes)[0]
     if hit.shape[0] == 0:
         return None, None
     m = int(hit[0])
-    shadow_avail = avail + deltas[: m + 1].sum(axis=0)
-    return times[m], shadow_avail
+    upto = rel.entry_m <= m
+    shadow_avail = avail.copy()
+    np.add.at(shadow_avail, rel.entry_node[upto], rel.entry_vec[upto])
+    return int(rel.times[m]), shadow_avail

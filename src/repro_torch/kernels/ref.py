@@ -56,6 +56,38 @@ def alloc_score_batch_ref(avail: torch.Tensor, capacity: torch.Tensor,
     return fit, score[None, :].expand(fit.shape).contiguous()
 
 
+def pack_bits(fit: torch.Tensor) -> torch.Tensor:
+    """fit [J, N] (0/1) -> int32[J, ceil(N/32)]: bit ``n % 32`` of word
+    ``n // 32`` is ``fit[j, n]``, the tail bits past N are 0; the words
+    are uint32 bit patterns held in int32."""
+    j, n = fit.shape
+    w = -(-n // 32)
+    padded = torch.zeros((j, w * 32), dtype=torch.int64, device=fit.device)
+    padded[:, :n] = fit.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=fit.device)
+    words = (padded.view(j, w, 32) << shifts).sum(dim=2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
+
+
+def unpack_bits(bits: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: int32[..., W] -> int32[..., n]."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    fit = (bits[..., None] >> shifts) & 1
+    return fit.reshape(*bits.shape[:-1], -1)[..., :n].to(torch.int32)
+
+
+def alloc_score_packed_ref(avail: torch.Tensor, capacity: torch.Tensor,
+                           req: torch.Tensor):
+    """The CUDA kernel's output layout: ``alloc_score_batch_ref``'s fit
+    mask run through :func:`pack_bits`, and the score once per node.
+
+    Returns (fit_bits int32[J, ceil(N/32)], score f32[N]).
+    """
+    fit, _ = alloc_score_batch_ref(avail, capacity, req)
+    return pack_bits(fit), _load_score(avail, capacity)
+
+
 # ----------------------------------------------------------------------
 # ebf_shadow: fit-count per release-prefix for EASY backfilling
 # ----------------------------------------------------------------------
@@ -70,6 +102,34 @@ def ebf_shadow_ref(avail: torch.Tensor, deltas: torch.Tensor,
     cum = avail[None, :, :] + torch.cumsum(deltas, dim=0, dtype=torch.int32)
     fit = (cum >= req[None, None, :]).all(dim=2)
     return fit.sum(dim=1, dtype=torch.int32)
+
+
+def ebf_shadow_sparse_ref(avail: torch.Tensor, node_ptr: torch.Tensor,
+                          entry_m: torch.Tensor, entry_vec: torch.Tensor,
+                          req: torch.Tensor, m: int):
+    """The CUDA kernel's input layout: releases grouped by node (entries
+    ``node_ptr[n] .. node_ptr[n+1]-1`` of node n, each a group index
+    ``entry_m`` and a vector ``entry_vec [nnz, R]``), densified into
+    ``deltas [m, N, R]`` and passed to :func:`ebf_shadow_ref`.  As in the
+    kernel, malformed releases (pointers not rising from 0 to nnz, a group
+    outside ``[0, m)`` or falling within a node) give counts of -1."""
+    n, r = avail.shape
+    nnz = entry_m.shape[0]
+    counts = (node_ptr[1:] - node_ptr[:-1]).to(torch.int64)
+    ok = (node_ptr[0] == 0 and node_ptr[-1] == nnz
+          and not bool((counts < 0).any()))
+    if ok:
+        node = torch.repeat_interleave(torch.arange(n, device=avail.device),
+                                       counts)
+        falls = (entry_m[1:] < entry_m[:-1]) & (node[1:] == node[:-1])
+        ok = nnz == 0 or (bool(entry_m.min() >= 0) and bool(entry_m.max() < m)
+                          and not bool(falls.any()))
+    if not ok:
+        return torch.full((m,), -1, dtype=torch.int32, device=avail.device)
+    deltas = torch.zeros((m, n, r), dtype=torch.int32, device=avail.device)
+    deltas.index_put_((entry_m.to(torch.int64), node), entry_vec,
+                      accumulate=True)
+    return ebf_shadow_ref(avail, deltas, req)
 
 
 # ----------------------------------------------------------------------

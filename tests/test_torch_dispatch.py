@@ -8,6 +8,8 @@
 * Kernel launches per event match the reference's contract
   (``test_dispatch_api.py``): 1 for the batched blocking policies, at
   most 3 and independent of J for vEBF, started + 1 per-job.
+* ``BatchProbe.find`` on the packed fit bits equals the reference's
+  probe on its [J, N] matrices, with and without changed rows.
 * Per-event replay: every ``DispatchContext`` of a reference vEBF-vBF
   run (with node failures, so floored rows and filtered releases
   occur), rebuilt through ``context_from_arrays``, plans the same.
@@ -33,6 +35,7 @@ from repro.core.dispatchers import (FirstInFirstOut as RFirstInFirstOut,
 from repro.core.dispatchers.base import SchedulerBase as RSchedulerBase
 from repro.core.dispatchers.base import Dispatcher as RDispatcher
 from repro.core.dispatchers.vectorized import (
+    BatchProbe as RBatchProbe,
     VectorizedAllocator as RVectorizedAllocator,
     VectorizedEasyBackfilling as RVectorizedEasyBackfilling)
 from repro.core.job import JobFactory as RJobFactory
@@ -46,7 +49,7 @@ from repro_torch.core.dispatchers import (BestFit, DispatchContext,
                                           context_from_arrays)
 from repro_torch.core.job import JobFactory
 from repro_torch.core.dispatchers.vectorized import (
-    VectorizedAllocator, VectorizedEasyBackfilling)
+    BatchProbe, VectorizedAllocator, VectorizedEasyBackfilling)
 from repro_torch.workloads.synthetic import SyntheticWorkload
 
 # the scenario of test_trace_golden.py
@@ -186,6 +189,40 @@ def test_vectorized_ebf_launches_independent_of_queue_depth():
         assert plan.trace() == rplan.trace()
         per_j[j] = plan.stats["kernel_launches"]
     assert per_j[32] == per_j[96] <= 3
+
+
+@pytest.mark.parametrize("policy", ["FF", "BF"])
+def test_batch_probe_unpacks_rows_like_the_reference(policy):
+    """``BatchProbe.find`` on the packed fit bits (one row unpacked per
+    probe, one score row) picks the nodes of the reference's probe on its
+    [J, N] matrices, against the base availability and against ones with
+    changed rows (nodes consumed, freed, floored to -1)."""
+    rng = np.random.default_rng(11)
+    ctx, rctx = _contexts(40, seed=11)
+    cap = ctx.capacity
+
+    def partly_used(a, rows):
+        a = a.copy()
+        a[rows] = rng.integers(-1, cap[rows] + 1)
+        return a
+
+    base = partly_used(ctx.avail, np.arange(cap.shape[0]))
+    probe = BatchProbe(ctx.replace(avail=base), policy, CPU)
+    rprobe = RBatchProbe(rctx.replace(avail=base), policy)
+    avails = [base] + [partly_used(base, rng.choice(cap.shape[0], size=k,
+                                                    replace=False))
+                       for k in (1, 3, 5, 8, 10)]
+    found = missed = 0
+    for a in avails:
+        for qi in range(ctx.n_queued):
+            got, want = probe.find(qi, a), rprobe.find(qi, a)
+            assert (got is None) == (want is None), qi
+            if want is None:
+                missed += 1
+            else:
+                assert list(got) == list(want), qi
+                found += 1
+    assert found > 0 and missed > 0
 
 
 # ---------------------------------------------------------------- replay

@@ -4,7 +4,10 @@ Each plain PyTorch version (``repro_torch.kernels.ref``, what a wrapper
 runs for a CPU tensor) is held against ``repro.kernels.ref`` and the
 Pallas kernel in interpret mode, on the shape sweeps of
 ``test_kernels.py`` plus ragged N, J = 1, R in {1, 2, 4} and rows
-floored to -1.  Tolerance is 0 for the dispatch kernels: fit masks and
+floored to -1.  The kernels' own layouts (fit bits and one score row;
+releases grouped by node) are unpacked or densified and held against the
+same reference, and the sparse ``shadow_from_releases`` against the
+reference's dense one.  Tolerance is 0 for the dispatch kernels: fit masks and
 fit counts are integers, and Best-Fit ties depend on every bit of the
 score.  The selective scan is float32 and is held within 2e-4 (the
 reference's own tolerance, ``test_kernels.py``) on the CPU and 1e-4 on
@@ -54,6 +57,14 @@ def jx():
                     np_out(*alloc_score_batch_pallas(a, c, q,
                                                      interpret=True)))
 
+        def dense(self, avail, releases):
+            from repro.kernels.ebf_shadow import group_releases
+            return group_releases(avail, releases)[1]
+
+        def shadow(self, avail, head, need, releases):
+            from repro.kernels.ebf_shadow import shadow_from_releases
+            return shadow_from_releases(avail, head, need, releases)
+
         def ebf(self, avail, deltas, req):
             a, d, q = map(jnp.asarray, (avail, deltas, req))
             return (np.asarray(ref.ebf_shadow_ref(a, d, q)),
@@ -96,6 +107,25 @@ def _bits(x):
 
 def _assert_score_bits(got, want):
     np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def _release_tuples(rng, n, r, n_rel, n_times, k_max=3, low=0, high=3):
+    """Sorted ``(time, nodes, vec)`` releases as a context gives them:
+    each job's k <= n nodes distinct, times from a small range (ties)."""
+    out = []
+    for _ in range(n_rel):
+        k = int(rng.integers(1, min(k_max, n) + 1))
+        out.append((int(rng.integers(0, n_times)),
+                    rng.choice(n, size=k, replace=False).astype(np.int64),
+                    rng.integers(low, high, r).astype(np.int64)))
+    out.sort(key=lambda e: e[0])
+    return out
+
+
+def _sparse_t(rel, r):
+    """The kernel's sparse inputs of ``SparseReleases`` as int32 tensors."""
+    return (_t(rel.node_ptr), _t(rel.entry_m),
+            _t(np.reshape(rel.entry_vec, (-1, r))))
 
 
 # ---------------------------------------------------------------- alloc
@@ -154,6 +184,31 @@ def test_batch_rows_equal_per_job_and_host_reconcile():
     _assert_score_bits(sb[0].numpy(), host)
 
 
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 129, 1000])
+@pytest.mark.parametrize("j", [1, 37])
+def test_alloc_score_packed_plain_matches_reference(jx, n, j):
+    """The kernel's layout (fit bits [J, ceil(N/32)], score [N]), unpacked,
+    is the reference's [J, N] fit and score, with -1-floored rows and zero
+    request columns; the tail bits past N are 0."""
+    avail, cap = _system(n, 2, floor=min(3, n))
+    req = RNG.integers(0, 6, (j, 2)).astype(np.int32)
+    req[::2, 0] = 0
+    bits, score = tref.alloc_score_packed_ref(_t(avail), _t(cap), _t(req))
+    assert bits.dtype == torch.int32 and bits.shape == (j, -(-n // 32))
+    assert score.shape == (n,)
+    fit = tref.unpack_bits(bits, n).numpy()
+    for f2, s2 in jx.batch(avail, cap, req):
+        np.testing.assert_array_equal(fit, f2)
+        for k in range(j):
+            _assert_score_bits(score.numpy(), s2[k])
+    words = bits.numpy().view(np.uint32)
+    if n % 32:
+        assert not np.any(words[:, -1] >> np.uint32(n % 32))
+    for k in range(j):                         # the host's row unpacking
+        np.testing.assert_array_equal(ops.fit_row(words[k], n),
+                                      fit[k].astype(bool))
+
+
 # ---------------------------------------------------------------- ebf
 EBF_SHAPES = [(1, 16, 1), (5, 100, 2), (33, 257, 3), (64, 1024, 4),
               (7, 129, 2), (1, 1, 1)]
@@ -182,6 +237,79 @@ def test_ebf_shadow_plain_is_monotone():
     req = np.array([3, 2], np.int32)
     fits = tref.ebf_shadow_ref(_t(avail), _t(deltas), _t(req)).numpy()
     assert np.all(np.diff(fits) >= 0)
+
+
+# releases: (n, r, releases, distinct-time range, nodes per job, low, high)
+SPARSE_CASES = {
+    "several_in_one_group": (40, 2, 30, 3, 6, 0, 3),
+    "nodes_without_entries": (300, 2, 5, 4, 2, 0, 3),
+    "one_group": (64, 3, 12, 1, 4, 0, 3),
+    "negative_deltas": (50, 2, 25, 6, 4, -3, 3),
+    "wide": (257, 4, 60, 20, 8, -1, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_ebf_shadow_sparse_plain_matches_reference(jx, case):
+    """The kernel's layout (releases grouped by node) through the port's
+    wrapper on the CPU equals the reference's dense ref and Pallas kernel
+    on the densified releases."""
+    n, r, n_rel, n_times, k_max, low, high = SPARSE_CASES[case]
+    rng = np.random.default_rng(len(case))
+    avail, _ = _system(n, r, rng=rng, floor=3)
+    releases = _release_tuples(rng, n, r, n_rel, n_times, k_max, low, high)
+    if case == "several_in_one_group":      # node 0 twice in one group
+        t0 = releases[0][0]
+        releases[:2] = [(t0, np.array([0, 1]), v) for _, _, v in
+                        releases[:2]]
+    rel = t_ebf.sparse_releases(n, releases)
+    m = rel.times.shape[0]
+    if case == "one_group":
+        assert m == 1
+    if case == "nodes_without_entries":
+        assert np.sum(np.diff(rel.node_ptr) == 0) > n // 2
+    req = RNG.integers(0, 5, (r,)).astype(np.int32)
+    fits = t_ebf.ebf_shadow(_t(avail), *_sparse_t(rel, r), _t(req), m)
+    assert fits.dtype == torch.int32 and fits.shape == (m,)
+    deltas = jx.dense(avail, releases)
+    for f2 in jx.ebf(avail, deltas, req):
+        np.testing.assert_array_equal(fits.numpy(), f2)
+
+
+def test_ebf_shadow_sparse_plain_without_releases(jx):
+    """No releases: M = 0 and an empty count, as the reference's plain
+    version gives for an empty ``deltas`` (its Pallas grid needs M >= 1)."""
+    from repro.kernels import ref as jref
+    avail, _ = _system(10, 2, floor=2)
+    rel = t_ebf.sparse_releases(10, [])
+    req = np.ones(2, np.int32)
+    fits = t_ebf.ebf_shadow(_t(avail), *_sparse_t(rel, 2), _t(req), 0)
+    want = jref.ebf_shadow_ref(avail, np.zeros((0, 10, 2), np.int32), req)
+    assert fits.dtype == torch.int32 and fits.shape == (0,)
+    assert np.asarray(want).shape == (0,)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_shadow_from_releases_matches_reference(jx, seed):
+    """(shadow time, shadow availability) of the port's sparse host path
+    == the reference's dense one (its kernels in the mode of its own CPU
+    tests), on random running-job sets with k <= n nodes per job."""
+    rng = np.random.default_rng(seed)
+    n, r = int(rng.integers(2, 40)), int(rng.integers(1, 4))
+    cap = rng.integers(2, 8, (n, r))
+    avail = rng.integers(0, 3, (n, r)).clip(0, cap)
+    avail[rng.random(n) < 0.1] = -1
+    releases = _release_tuples(rng, n, r, int(rng.integers(0, 14)), 5)
+    head = rng.integers(1, 4, r)
+    need = int(rng.integers(1, max(2, n // 2)))
+    got_t, got = t_ebf.shadow_from_releases(avail, head, need, releases,
+                                            "cpu")
+    want_t, want = jx.shadow(avail, head, need, releases)
+    assert got_t == want_t
+    if want is None:
+        assert got is None
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------- scan
@@ -265,109 +393,202 @@ def test_selective_scan_refuses_bad_inputs():
 def test_cpu_wrappers_run_plain_versions_and_launch_nothing():
     avail, cap = _system(50, 2, floor=2)
     req = RNG.integers(0, 4, (9, 2)).astype(np.int32)
-    deltas = RNG.integers(0, 2, (4, 50, 2)).astype(np.int32)
+    rel = t_ebf.sparse_releases(50, _release_tuples(RNG, 50, 2, 8, 4))
+    m = rel.times.shape[0]
     counters.reset_device_launches()
     f, s = t_alloc.alloc_score_batch(_t(avail), _t(cap), _t(req))
     f1, s1 = t_alloc.alloc_score(_t(avail), _t(cap), _t(req[0]))
-    fits = t_ebf.ebf_shadow(_t(avail), _t(deltas), _t(req[0]))
+    fits = t_ebf.ebf_shadow(_t(avail), *_sparse_t(rel, 2), _t(req[0]), m)
     assert counters.device_launch_stats() == {}
-    want = tref.alloc_score_batch_ref(_t(avail), _t(cap), _t(req))
+    want = tref.alloc_score_packed_ref(_t(avail), _t(cap), _t(req))
     assert torch.equal(f, want[0]) and torch.equal(s, want[1])
-    assert torch.equal(f1, f[0]) and torch.equal(s1, s[0])
-    assert torch.equal(fits, tref.ebf_shadow_ref(_t(avail), _t(deltas),
-                                                 _t(req[0])))
+    assert torch.equal(f1, f[0]) and torch.equal(s1, s)
+    assert torch.equal(fits, tref.ebf_shadow_sparse_ref(
+        _t(avail), *_sparse_t(rel, 2), _t(req[0]), m))
 
 
 def test_wrappers_refuse_bad_inputs():
     avail, cap = _system(8, 2)
     req = np.zeros((3, 2), np.int32)
+    rel = _sparse_t(t_ebf.sparse_releases(8, [(1, np.array([2]),
+                                                np.array([1, 1]))]), 2)
     with pytest.raises(TypeError):
         t_alloc.alloc_score_batch(_t(avail).long(), _t(cap), _t(req))
     with pytest.raises(ValueError):
         t_alloc.alloc_score_batch(_t(avail), _t(cap), _t(req[:, :1]))
     with pytest.raises(ValueError):
         t_alloc.alloc_score_batch(_t(avail).t(), _t(cap).t(), _t(req))
+    with pytest.raises(ValueError):                     # rank of req
+        t_alloc.alloc_score(_t(avail), _t(cap), _t(req))
+    with pytest.raises(ValueError):                     # R of entry_vec
+        t_ebf.ebf_shadow(_t(avail), rel[0], rel[1],
+                         _t(np.zeros((1, 3), np.int32)), _t(req[0]), 1)
+    with pytest.raises(ValueError):                     # node_ptr length
+        t_ebf.ebf_shadow(_t(avail), rel[0][:-1], rel[1], rel[2],
+                         _t(req[0]), 1)
     with pytest.raises(ValueError):
-        t_ebf.ebf_shadow(_t(avail), _t(np.zeros((2, 8, 3), np.int32)),
-                         _t(req[0]))
-    with pytest.raises(ValueError):
-        t_ebf.ebf_shadow(_t(avail).to("meta"),
-                         _t(np.zeros((2, 8, 2), np.int32)).to("meta"),
-                         _t(req[0]).to("meta"))
+        t_ebf.ebf_shadow(*[x.to("meta") for x in (_t(avail), *rel,
+                                                  _t(req[0]))], 1)
+    with pytest.raises(ValueError):                     # node id >= n
+        t_ebf.sparse_releases(8, [(1, np.array([8]), np.array([1, 1]))])
 
 
 def test_ops_cast_int64_and_count_one_launch_per_call():
     avail, cap = _system(40, 2, floor=1)
     req = RNG.integers(0, 4, (6, 2))                 # int64, as in contexts
+    rel = t_ebf.sparse_releases(40, _release_tuples(RNG, 40, 2, 5, 3))
     before = ops.launch_stats()
-    fit, score = ops.alloc_score_batch(avail.astype(np.int64),
-                                       cap.astype(np.int64), req, "cpu")
-    fits = ops.ebf_shadow_fits(avail, np.zeros((3, 40, 2), np.int64),
-                               req[0], "cpu")
+    bits, score = ops.alloc_score_batch(avail.astype(np.int64),
+                                        cap.astype(np.int64), req, "cpu")
+    fit1, score1 = ops.alloc_score(avail.astype(np.int64),
+                                   cap.astype(np.int64), req[0], "cpu")
+    fits = ops.ebf_shadow_fits(avail.astype(np.int64), rel, req[0], "cpu")
     after = ops.launch_stats()
-    assert after.get("alloc_score_batch", 0) \
-        - before.get("alloc_score_batch", 0) == 1
-    assert after.get("ebf_shadow", 0) - before.get("ebf_shadow", 0) == 1
-    assert isinstance(fit, np.ndarray) and fit.dtype == np.int32
-    assert score.dtype == np.float32 and fit.shape == score.shape == (6, 40)
-    assert fits.dtype == np.int32 and fits.shape == (3,)
+    for name in ("alloc_score_batch", "alloc_score", "ebf_shadow"):
+        assert after.get(name, 0) - before.get(name, 0) == 1, name
+    assert isinstance(bits, np.ndarray) and bits.dtype == np.uint32
+    assert bits.shape == (6, 2) and score.dtype == np.float32
+    assert score.shape == (40,)
+    assert fit1.dtype == bool and fit1.shape == (40,)
+    np.testing.assert_array_equal(fit1, ops.fit_row(bits[0], 40))
+    _assert_score_bits(score1, score)
+    assert fits.dtype == np.int32 and fits.shape == rel.times.shape
+
+
+MALFORMED = ["ptr_end", "ptr_order", "m_range", "m_order", "m_negative"]
+
+
+def _malformed_releases(mutate):
+    """(avail, good, bad): 6 nodes, two release groups, and the same
+    releases broken as ``mutate`` says."""
+    avail, _ = _system(6, 2)
+    rel = t_ebf.sparse_releases(6, [(1, np.array([0, 2]), np.array([1, 1])),
+                                    (4, np.array([2, 3]), np.array([1, 0]))])
+    ptr, em = rel.node_ptr.copy(), rel.entry_m.copy()
+    if mutate == "ptr_end":
+        ptr[-1] += 1
+    elif mutate == "ptr_order":
+        ptr[1], ptr[2] = ptr[2] + 1, ptr[1]
+    elif mutate == "m_range":
+        em[-1] = 2
+    elif mutate == "m_order":                        # node 2: m 0 then 1
+        em[1], em[2] = 1, 0
+    else:
+        em[0] = -1
+    return avail, rel, rel._replace(node_ptr=ptr, entry_m=em)
+
+
+@pytest.mark.parametrize("mutate", MALFORMED)
+def test_ops_refuse_malformed_sparse_releases(mutate):
+    avail, rel, bad = _malformed_releases(mutate)
+    ops.ebf_shadow_fits(avail, rel, np.ones(2, np.int64), "cpu")
+    with pytest.raises(ValueError, match="malformed"):
+        ops.ebf_shadow_fits(avail, bad, np.ones(2, np.int64), "cpu")
+    fits = t_ebf.ebf_shadow(_t(avail), *_sparse_t(bad, 2),
+                            _t(np.ones(2, np.int32)), 2)
+    assert torch.equal(fits, torch.full((2,), -1, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------- on the card
+def _assert_packed_equal(got, want):
+    (bits, score), (wbits, wscore) = got, want
+    assert bits.shape == wbits.shape and score.shape == wscore.shape
+    assert torch.equal(bits.cpu(), wbits.cpu())
+    _assert_score_bits(score.cpu().numpy(), wscore.cpu().numpy())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("j,n,r", [(1, 120, 2), (400, 120, 2), (4096, 1024, 2),
                                    (17, 513, 3), (3, 1, 1), (70000, 5, 2),
-                                   (0, 16, 2)])
+                                   (0, 16, 2), (70000, 4097, 2), (37, 33, 8)])
 def test_alloc_score_batch_cuda_equals_plain(cuda, j, n, r):
+    """Bits and score bitwise equal to the packed plain version (computed
+    on the card: at J 70,000 x N 4097 its [J, N, R] compare is 0.6 GB)."""
     avail, cap = _system(n, r, floor=min(3, n))
     req = RNG.integers(0, 6, (j, r)).astype(np.int32)
-    a, c, q = _t(avail), _t(cap), _t(req)
-    f, s = t_alloc.alloc_score_batch(a.to(cuda), c.to(cuda), q.to(cuda))
+    req[::3, 0] = 0
+    a, c, q = (_t(x).to(cuda) for x in (avail, cap, req))
+    counters.reset_device_launches()
+    got = t_alloc.alloc_score_batch(a, c, q)
     torch.cuda.synchronize()
-    fw, sw = tref.alloc_score_batch_ref(a, c, q)
-    np.testing.assert_array_equal(f.cpu().numpy(), fw.numpy())
-    _assert_score_bits(s.cpu().numpy(), sw.numpy())
+    assert counters.device_launch_stats() == {"alloc_score_batch": 1}
+    assert got[0].shape == (j, -(-n // 32))
+    _assert_packed_equal(got, tref.alloc_score_packed_ref(a, c, q))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,r", [(120, 2), (1024, 2), (513, 4), (1, 1)])
+@pytest.mark.parametrize("n,r", [(120, 2), (1024, 2), (513, 4), (1, 1),
+                                 (33, 2)])
 def test_alloc_score_cuda_equals_plain(cuda, n, r):
     avail, cap = _system(n, r, floor=min(2, n))
     req = RNG.integers(0, 6, (r,)).astype(np.int32)
-    a, c, q = _t(avail), _t(cap), _t(req)
+    a, c, q = (_t(x).to(cuda) for x in (avail, cap, req))
     counters.reset_device_launches()
-    f, s = t_alloc.alloc_score(a.to(cuda), c.to(cuda), q.to(cuda))
+    bits, score = t_alloc.alloc_score(a, c, q)
     torch.cuda.synchronize()
     assert counters.device_launch_stats() == {"alloc_score": 1}
-    fw, sw = tref.alloc_score_ref(a, c, q)
-    np.testing.assert_array_equal(f.cpu().numpy(), fw.numpy())
-    _assert_score_bits(s.cpu().numpy(), sw.numpy())
+    wbits, wscore = tref.alloc_score_packed_ref(a, c, q.view(1, -1))
+    _assert_packed_equal((bits, score), (wbits[0], wscore))
+    fw, _ = tref.alloc_score_ref(a, c, q)
+    assert torch.equal(tref.unpack_bits(bits, n), fw)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,r", [(1, 120, 2), (200, 120, 2),
-                                   (1000, 1024, 2), (33, 257, 8),
-                                   (5, 100, 3), (0, 10, 2)])
-def test_ebf_shadow_cuda_equals_plain(cuda, m, n, r):
-    avail, _ = _system(n, r, floor=min(4, n))
-    deltas = RNG.integers(0, 3, (m, n, r)).astype(np.int32)
-    deltas[:, avail[:, 0] < 0, :] = 0
+@pytest.mark.parametrize("n,r,n_rel,n_times,k_max,low", [
+    (120, 2, 1, 1, 3, 0), (120, 2, 300, 200, 8, 0),
+    (1024, 2, 400, 194, 32, 0), (257, 8, 80, 33, 8, -2),
+    (100, 3, 20, 5, 4, -3), (10, 2, 0, 1, 3, 0),     # M = 0: no launch
+    # past the shared-memory group limit, and more nodes than threads
+    (2000, 2, 12000, 6000, 4, -1), (3000, 2, 9000, 9000, 2, 0)])
+def test_ebf_shadow_cuda_equals_plain(cuda, n, r, n_rel, n_times, k_max,
+                                      low):
+    rng = np.random.default_rng(n + n_rel)
+    avail, _ = _system(n, r, rng=rng, floor=min(4, n))
+    rel = t_ebf.sparse_releases(n, _release_tuples(
+        rng, n, r, n_rel, n_times, k_max, low))
+    m = rel.times.shape[0]
+    if n > 1024:                    # the last two cases
+        assert m > t_ebf.shared_m()
     req = RNG.integers(0, 5, (r,)).astype(np.int32)
-    a, d, q = _t(avail), _t(deltas), _t(req)
-    fits = t_ebf.ebf_shadow(a.to(cuda), d.to(cuda), q.to(cuda))
+    args = [x.to(cuda) for x in (_t(avail), *_sparse_t(rel, r), _t(req))]
+    counters.reset_device_launches()
+    fits = t_ebf.ebf_shadow(*args, m)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(fits.cpu().numpy(),
-                                  tref.ebf_shadow_ref(a, d, q).numpy())
+    assert counters.device_launch_stats() == ({"ebf_shadow": 1} if m else {})
+    assert fits.shape == (m,)
+    assert torch.equal(fits.cpu(), tref.ebf_shadow_sparse_ref(*args, m).cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mutate", MALFORMED)
+def test_ebf_shadow_cuda_marks_malformed_releases(cuda, mutate):
+    """Broken pointers or group indices are not followed: every count is
+    -1, as in the plain version, and the card raises no fault."""
+    avail, _, bad = _malformed_releases(mutate)
+    args = [x.to(cuda) for x in (_t(avail), *_sparse_t(bad, 2),
+                                 _t(np.ones(2, np.int32)))]
+    fits = t_ebf.ebf_shadow(*args, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(fits.cpu(), torch.full((2,), -1, dtype=torch.int32))
+    assert torch.equal(fits.cpu(), tref.ebf_shadow_sparse_ref(*args, 2).cpu())
+
+
+def _zeros_on(dev):
+    return lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
 
 
 @pytest.mark.cuda
 def test_ebf_shadow_cuda_refuses_wide_r(cuda):
-    r = t_ebf.MAX_R + 1
+    r, z = t_ebf.MAX_R + 1, _zeros_on(cuda)
     with pytest.raises(ValueError):
-        t_ebf.ebf_shadow(torch.zeros((4, r), dtype=torch.int32, device=cuda),
-                         torch.zeros((2, 4, r), dtype=torch.int32,
-                                     device=cuda),
-                         torch.zeros((r,), dtype=torch.int32, device=cuda))
+        t_ebf.ebf_shadow(z(4, r), z(5), z(0), z(0, r), z(r), 2)
+
+
+@pytest.mark.cuda
+def test_alloc_score_cuda_refuses_wide_r(cuda):
+    r, z = t_alloc.MAX_R + 1, _zeros_on(cuda)
+    with pytest.raises(ValueError):
+        t_alloc.alloc_score_batch(z(4, r), z(4, r), z(2, r))
 
 
 @pytest.mark.cuda
