@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments::
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 and drives the simulator's main path on the card:
 
-1. card: name and power limit, torch and CUDA versions, kernel build;
+1. card: name and power limit, torch and CUDA versions, kernel build
+   (ptxas registers and spills; the scan's registers, shared memory and
+   resident warps per SM);
 2. Seth (the paper's Fig. 7 system, 120 nodes x 4 cores x 1 GB) with a
    Seth-like stream of 10,000 jobs: the 8 vectorized Table-2 rows and
    the per-job FIFO-vFF row on CUDA, each against its numpy twin;
@@ -35,8 +37,10 @@ and drives the simulator's main path on the card:
    call less its prefill; one profiled prefill and 8 decode steps split
    device time into the scan, matrix products and the rest;
 6. the ``selective_scan`` kernel against its plain version on the
-   largest inputs the serve run gave it plus ragged L, Di and S, within
-   1e-4, with its times and bound;
+   largest inputs the serve run gave it (bf16) plus ragged S, Di and L in
+   float32, bf16 and fp16, within 1e-4, with its times and bound; and
+   the narrow inputs read natively bitwise equal to the same values
+   upcast to float32;
 7. serving consistency: the full-width model cut to 4 layers in float32
    (TF32 off): a 64-token prefill and 8 decode steps match the
    train-mode forward's logits within 5e-4.
@@ -340,7 +344,8 @@ def check(name, fn, plain, cases, tol=None):
                                          f"plain version")
             elif g.dtype == torch.float32:
                 if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
-                    raise AssertionError(f"{name}: score not bitwise equal")
+                    raise AssertionError(f"{name}: float output not "
+                                         f"bitwise equal")
             elif not torch.equal(g, w):
                 raise AssertionError(f"{name}: integer output differs")
             if g.numel():
@@ -384,17 +389,18 @@ def bound(name, shapes):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and the
     operations' time (fp32 operations at the fp32 peak; the scan's
     exponentials at the SFU rate, whichever is longer), for one call at
-    these shapes (int32 and float32 are 4 bytes; inputs read once,
-    outputs written once)."""
+    these shapes (int32 and float32 are 4 bytes, the scan's u, delta, B
+    and C are counted at their element size; inputs read once, outputs
+    written once)."""
     t_exp = 0.0
     if name == "ebf_shadow":                      # sparse, grouped by node
         m, n, r, nnz = shapes
         nbytes = 4 * (n * r + r + n + 1 + nnz * (1 + r) + m)
         ops = 2 * (n + nnz) * r + m               # adds, compares; scan
     elif name == "selective_scan":
-        bt, length, di, s = shapes                # float32, as the kernel
-        nbytes = 4 * (3 * bt * length * di + di * s + 2 * bt * length * s
-                      + di + bt * di * s)         # u, delta, y; A; B, C ...
+        bt, length, di, s, e = shapes             # e: bytes of u, delta, B, C
+        nbytes = (e * (2 * bt * length * di + 2 * bt * length * s)
+                  + 4 * (bt * length * di + di * s + di + bt * di * s))
         ops = 6 * bt * length * di * s            # mul, 2 fma, mul, fma, add
         t_exp = bt * length * di * s / SFU_EXP_PER_S
     else:                                         # fit bits + score [N]
@@ -729,29 +735,50 @@ def profile_serving(model, params, dev, vocab):
              "top_kernels_ms": [[k, t * 1e-3] for t, k in sorted(top)[::-1][:6]]})
 
 
-def scan_case(rng, dev, bt, length, di, s):
-    """Random scan inputs on ``dev``: small positive delta, negative A."""
+def scan_case(rng, dev, bt, length, di, s, dtype=torch.float32):
+    """Random scan inputs on ``dev``: small positive delta, negative A;
+    u, delta, B and C in ``dtype``, A and D in float32 (as the model)."""
     u = rng.standard_normal((bt, length, di))
     dt = np.abs(rng.standard_normal((bt, length, di))) * 0.1
     A = -np.abs(rng.standard_normal((di, s)))
     B = rng.standard_normal((bt, length, s))
     C = rng.standard_normal((bt, length, s))
     D = rng.standard_normal((di,))
-    return tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
-                 for x in (u, dt, A, B, C, D))
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(dev).to(
+        torch.float32 if i in (2, 5) else dtype)
+        for i, x in enumerate((u, dt, A, B, C, D)))
+
+
+# (Bt, L, Di, S, type): S past the 4-state groups (1, 5, 13), Di past the
+# 64-channel tile and the 16-byte rows (77, 4001, 8190), L short of and
+# past the 32-step chunk (1, 3, 37, 1000), each input type
+SCAN_CASES = ((1, 1, 77, 16, torch.float32), (2, 3, 8190, 1, torch.bfloat16),
+              (2, 37, 4001, 5, torch.float16),
+              (2, 1000, 4001, 13, torch.bfloat16),
+              (4, 1000, 8192, 1, torch.float32),
+              (1, 1000, 77, 5, torch.float16),
+              (3, 37, 8190, 13, torch.float32))
 
 
 def check_scan(dev, served, launches):
     """Phase 6: the scan kernel against its plain version on the serve
-    run's largest inputs plus ragged L, Di and S, within 1e-4."""
+    run's largest inputs plus ragged S, Di and L in every input type,
+    within 1e-4; and on the narrow cases, bitwise against itself on the
+    same values upcast to float32 (the native read is exact)."""
     rng = np.random.default_rng(2)
-    cases = [served] + [scan_case(rng, dev, *shape) for shape in (
-        (1, 1, 77, 16), (2, 3, 8190, 1), (2, 1000, 4001, 16),
-        (4, 1000, 8192, 1))]
+    cases = [scan_case(rng, dev, *shape) for shape in SCAN_CASES]
+    narrow = [served] + [c for c in cases if c[0].dtype != torch.float32]
+    check("selective_scan", k_scan.selective_scan,
+          lambda *a: k_scan.selective_scan(*[x.float() for x in a]), narrow)
+    log({"phase": "kernel", "name": "selective_scan",
+         "check": "native read equals float32 upcast, bitwise",
+         "cases": [[*c[0].shape, c[2].shape[1], str(c[0].dtype)]
+                   for c in narrow]})
     return kernel_rows("selective_scan", k_scan.selective_scan,
-                       ref.selective_scan_ref, {"serve": served}, cases[1:],
+                       ref.selective_scan_ref, {"serve": served}, cases,
                        {"serve": launches},
-                       lambda a: tuple(a[0].shape) + (a[2].shape[1],),
+                       lambda a: tuple(a[0].shape) + (
+                           a[2].shape[1], a[0].element_size()),
                        tol=1e-4, reps=20, plain_reps=2, plain_rounds=3,
                        plain_device_reps=2)
 
@@ -823,6 +850,11 @@ def run(dev) -> int:
         log({"phase": "build", "source": name, "nvcc_s": secs,
              "ptxas": ptxas})
     log({"phase": "build", "total_s": time.perf_counter() - t0})
+    for dtype in k_scan.DTYPE_CODES:
+        for aligned in (True, False):
+            log({"phase": "build", "kernel": "selective_scan",
+                 "dtype": str(dtype), "aligned": aligned,
+                 **k_scan.kernel_attributes(dtype, aligned, dev)})
 
     # ---- 2./3. main path ---------------------------------------------
     tap = Tap(ops)

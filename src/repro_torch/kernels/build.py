@@ -47,9 +47,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "ebf_shadow_shared_m": [],
     },
     "selective_scan": {
-        # u, delta, A, B, C, D, y, h_last, Bt, L, Di, S, device, stream
+        # u, delta, A, B, C, D, y, h_last, Bt, L, Di, S, dtype code,
+        # device, stream
         "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _P],
+        # dtype code, aligned, device, int out[5]
+        "selective_scan_attributes": [_I, _I, _I, _P],
     },
 }
 

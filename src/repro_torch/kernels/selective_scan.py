@@ -3,10 +3,14 @@
 The recurrence ``h = exp(delta * A) * h + delta * B * u``, ``y = h . C +
 D * u`` over the sequence, for the prefill and training forward of the
 Mamba mixer (``models/mamba.py``).  The kernel (``csrc/selective_scan.cu``)
-keeps one channel's state in registers for the whole sequence; the plain
-version is ``ref.selective_scan_ref``.
+splits each channel's states over four lanes, stages the inputs in shared
+memory and reads ``u``, ``delta``, ``B`` and ``C`` in the caller's float
+type; the plain version is ``ref.selective_scan_ref``.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Dict
 
 import torch
 
@@ -16,6 +20,8 @@ from . import build, counters, ref
 MAX_S = 16
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+#: element types the kernel reads natively -> code across the ABI
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -25,14 +31,14 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     ``u, delta [Bt, L, Di]``, ``A [Di, S]``, ``B, C [Bt, L, S]``,
     ``D [Di]``, any float type (computed in float32), any ``L >= 1`` and
     ``Di >= 1``.  A CUDA tensor launches the kernel (``S <= MAX_S``) or
-    raises; a CPU tensor runs the plain version.
+    raises: ``u``, ``delta``, ``B`` and ``C`` are read as they are when
+    they share one type, else all four are cast to float32; ``A`` and
+    ``D`` are cast to float32.  A CPU tensor runs the plain version.
     """
     dev = u.device
     for t, name, ndim in ((u, "u", 3), (delta, "delta", 3), (A, "A", 2),
                           (B, "B", 3), (C, "C", 3), (D, "D", 1)):
         build.check_input(t, name, ndim, dev, _FLOATS)
-    u, delta, A, B, C, D = (t.to(torch.float32)
-                            for t in (u, delta, A, B, C, D))
     bt, length, di = u.shape
     s = A.shape[1]
     if (tuple(delta.shape) != (bt, length, di) or A.shape[0] != di
@@ -50,6 +56,9 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"selective_scan kernel takes S <= {MAX_S}, got {s}")
     if bt > 65535:
         raise ValueError(f"selective_scan kernel takes Bt <= 65535, got {bt}")
+    if len({u.dtype, delta.dtype, B.dtype, C.dtype}) > 1:
+        u, delta, B, C = (t.to(torch.float32) for t in (u, delta, B, C))
+    A, D = A.to(torch.float32), D.to(torch.float32)
     y = torch.empty((bt, length, di), dtype=torch.float32, device=dev)
     h_last = torch.empty((bt, di, s), dtype=torch.float32, device=dev)
     lib = build.library("selective_scan")
@@ -58,6 +67,24 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     build.check(lib.selective_scan_launch(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-        bt, length, di, s, index, stream), "selective_scan")
+        bt, length, di, s, DTYPE_CODES[u.dtype], index, stream),
+        "selective_scan")
     counters.record_device("selective_scan")
     return y, h_last
+
+
+def kernel_attributes(dtype: torch.dtype, aligned: bool,
+                      device=None) -> Dict[str, int]:
+    """What the kernel instantiation for ``dtype`` (``aligned``: pointers
+    and row pitch multiples of 16 bytes) uses on the card: registers per
+    thread, static and dynamic shared memory per block, threads per block
+    and resident blocks and warps per SM (the occupancy calculator's)."""
+    dev = torch.device("cuda" if device is None else device)
+    out = (ctypes.c_int * 5)()
+    build.check(build.library("selective_scan").selective_scan_attributes(
+        DTYPE_CODES[dtype], int(aligned), build.device_index(dev),
+        ctypes.addressof(out)), "selective_scan_attributes")
+    regs, smem_static, smem_dynamic, threads, blocks = out
+    return {"registers": regs, "smem_static_bytes": smem_static,
+            "smem_dynamic_bytes": smem_dynamic, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}

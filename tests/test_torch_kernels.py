@@ -11,7 +11,9 @@ reference's dense one.  Tolerance is 0 for the dispatch kernels: fit masks and
 fit counts are integers, and Best-Fit ties depend on every bit of the
 score.  The selective scan is float32 and is held within 2e-4 (the
 reference's own tolerance, ``test_kernels.py``) on the CPU and 1e-4 on
-the card: the versions order their sums differently.
+the card: the versions order their sums differently.  On the card its
+bf16 and fp16 reads are held bitwise against the same values upcast to
+float32: widening is exact.
 
 The ``cuda`` tests hold each CUDA kernel against its plain version on
 the card and skip without one.  They need no JAX, so they also run on a
@@ -354,6 +356,29 @@ def test_selective_scan_plain_ragged_matches_reference(jx):
     _close(h, want[1], 2e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bt,l,di,s,chunk,bd", [
+    (2, 64, 64, 16, 32, 32),
+    (1, 128, 96, 5, 64, 32),
+])
+def test_selective_scan_serve_dtypes_match_reference(jx, dtype, bt, l, di, s,
+                                                     chunk, bd):
+    """The types the serve path hands ``ops.selective_scan``: narrow u,
+    delta, B and C, float32 A and D.  The reference gets the same
+    rounded values in float32."""
+    u, dt, A, B, C, D = _scan_inputs(bt, l, di, s)
+    narrow = [torch.from_numpy(x).to(dtype) for x in (u, dt, B, C)]
+    y, h = ops.selective_scan(narrow[0], narrow[1], torch.from_numpy(A),
+                              narrow[2], narrow[3], torch.from_numpy(D))
+    assert y.dtype == h.dtype == torch.float32
+    nu, ndt, nb, nc = (x.float().numpy() for x in narrow)
+    args = (nu, ndt, A, nb, nc, D)
+    for want in (jx.scan_ref(*args),
+                 jx.scan_pallas(*args, chunk=chunk, block_d=bd)):
+        _close(y, want[0], 2e-4)
+        _close(h, want[1], 2e-4)
+
+
 def test_selective_scan_cpu_wrapper_casts_and_counts():
     args = [torch.from_numpy(x) for x in _scan_inputs(2, 9, 24, 3)]
     half = [x.to(torch.bfloat16) for x in args]
@@ -602,6 +627,54 @@ def test_selective_scan_cuda_equals_plain(cuda, bt, l, di, s):
     torch.cuda.synchronize()
     assert counters.device_launch_stats() == {"selective_scan": 1}
     yw, hw = tref.selective_scan_ref(*[x.to(cuda) for x in args])
+    _close(y.cpu(), yw.cpu(), 1e-4)
+    _close(h.cpu(), hw.cpu(), 1e-4)
+
+
+def _scan_on(dev, args, dtype):
+    """Scan inputs on ``dev``: u, delta, B, C in ``dtype``, A, D float32."""
+    return [torch.from_numpy(x).to(dev).to(
+        torch.float32 if i in (2, 5) else dtype) for i, x in enumerate(args)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bt,l,di,s", [(4, 1000, 8192, 16), (2, 37, 8190, 13),
+                                       (1, 3, 77, 5), (3, 130, 4001, 1)])
+def test_selective_scan_cuda_native_read_is_exact(cuda, dtype, bt, l, di, s):
+    """Narrow inputs read as they lie give bitwise the result of the same
+    values upcast to float32: the widening is exact."""
+    narrow = _scan_on(cuda, _scan_inputs(bt, l, di, s), dtype)
+    counters.reset_device_launches()
+    y, h = t_scan.selective_scan(*narrow)
+    yf, hf = t_scan.selective_scan(*[x.float() for x in narrow])
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {"selective_scan": 2}
+    assert torch.equal(y, yf) and torch.equal(h, hf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,l,di,s,dtype", [
+    (2, 37, 64, 1, torch.float32),        # S below one state group
+    (2, 3, 77, 5, torch.bfloat16),        # S not a multiple of 4
+    (1, 1000, 4001, 13, torch.float32),
+    (3, 1, 8190, 16, torch.bfloat16),     # L = 1
+    (2, 37, 8190, 5, torch.float16),      # unaligned fp16 rows
+    (1, 1000, 77, 16, torch.float16),
+    (2, 3, 4001, 13, torch.float16),
+    (2, 1000, 8190, 16, torch.bfloat16),
+])
+def test_selective_scan_cuda_ragged_tiling_equals_plain(cuda, bt, l, di, s,
+                                                        dtype):
+    """S, Di and L that cut across the state groups, the 64-channel tile,
+    the 32-step chunk and the 16-byte rows, within 1e-4 of the plain
+    version, in one launch."""
+    args = _scan_on(cuda, _scan_inputs(bt, l, di, s), dtype)
+    counters.reset_device_launches()
+    y, h = t_scan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {"selective_scan": 1}
+    yw, hw = tref.selective_scan_ref(*args)
     _close(y.cpu(), yw.cpu(), 1e-4)
     _close(h.cpu(), hw.cpu(), 1e-4)
 
