@@ -43,13 +43,30 @@ and drives the simulator's main path on the card:
    upcast to float32;
 7. serving consistency: the full-width model cut to 4 layers in float32
    (TF32 off): a 64-token prefill and 8 decode steps match the
-   train-mode forward's logits within 5e-4.
+   train-mode forward's logits within 5e-4;
+8. the fleet engine (``fleet_engine``, one thread block per sim): the
+   Seth grid, the 8 Table-2 policies x 16 seeds of the Seth stream (128
+   sims of 10,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
+   phase 2's numpy twins job by job and in the summary counters, every
+   sim's invariants, two lanes equal to their solo launches; events/s,
+   the twins' events/s and the device busy share;
+9. the 8 policies on the RICC-sized system (5,000 jobs): the 6 blocking
+   rows to the end against numpy twins, the EBF rows against twins cut
+   at 150 events (phase 3's EBF-BF twin, a new EBF-FF one);
+10. Seth under a seeded FAIL/REPAIR schedule with checkpoint credit, a
+   quarantine and telemetry: FIFO-FF and EBF-BF equal to the host
+   ``Simulator(failures=...)`` (traces, failure counters, telemetry);
+11. the kernel against ``advance_plain`` (CPU, same inputs) on the
+   golden scenario's 8 policies with and without the prefilter, a
+   failure schedule with telemetry, and padded lanes (whole final state
+   equal); its time and the plain version's on the card.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
-kernels on phases 2-3, ``selective_scan`` on phase 5; each path's counts
-are set to 0 just before it and read just after).  The last two lines
+kernels on phases 2-3, ``selective_scan`` on phase 5, ``fleet_engine``
+on phases 8-10; each path's counts are set to 0 just before it and read
+just after).  The last two lines
 are the kernel table and ``{"ok": true, "device": ...}``; any failure
 exits non-zero before them.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -58,6 +75,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import multiprocessing
 import os
 import random
 import statistics
@@ -72,7 +90,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.cluster import FailureInjector  # noqa: E402
+from repro_torch.cluster.failures import CheckpointRestartPolicy  # noqa: E402
 from repro_torch.core import Job, Simulator  # noqa: E402
+from repro_torch.core.job import JobFactory  # noqa: E402
 from repro_torch.core.dispatchers import (BestFit, EasyBackfilling,  # noqa: E402
                                           FirstFit, FirstInFirstOut,
                                           LongestJobFirst, ShortestJobFirst)
@@ -84,9 +105,17 @@ from repro_torch.kernels import build, counters, ops, ref  # noqa: E402
 from repro_torch.kernels import ebf_shadow as k_ebf  # noqa: E402
 from repro_torch.kernels import selective_scan as k_scan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.fleet import (ALLOC_BF, ALLOC_FF, ALLOC_NAMES,  # noqa: E402
+                               SCHED_EBF, SCHED_FIFO, SCHED_LJF,
+                               SCHED_NAMES, SCHED_SJF, FleetRunner,
+                               FleetSim, SimState, advance, advance_plain,
+                               stack, unstack)
+from repro_torch.fleet.state import (COMPLETED, REJECTED,  # noqa: E402
+                                     UNSET_I)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
                                  greedy_generate, make_prefill_step)
+from repro_torch.workloads.synthetic import SyntheticWorkload  # noqa: E402
 
 # H100 SXM, NVIDIA's data sheet (see PERF.md): HBM rate, fp32 non-tensor
 # rate, and exponentials (16 SFU results per clock per SM, 132 SMs at the
@@ -120,11 +149,30 @@ KERNELS = {
                    "src/repro/kernels/ebf_shadow.py:60", "dispatch"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:61", "mamba"),
+    "fleet_engine": ("src/repro_torch/kernels/csrc/fleet_engine.cu",
+                     "src/repro/fleet/engine.py:423", "fleet"),
 }
 DISPATCH_KERNELS = {k for k, v in KERNELS.items() if v[2] == "dispatch"}
 # device-side function names, as the profiler reports them
 DEVICE_NAMES = {"alloc_score_kernel", "ebf_shadow_kernel",
-                "selective_scan_kernel"}
+                "selective_scan_kernel", "fleet_engine_kernel"}
+
+# the fleet: the 8 Table-2 policies, the Seth grid's seeds, the golden
+# scenario of the reference's fleet tests, and the failure schedule
+POLICIES = [(sc, ac) for sc in (SCHED_FIFO, SCHED_SJF, SCHED_LJF, SCHED_EBF)
+            for ac in (ALLOC_FF, ALLOC_BF)]
+FLEET_SEEDS = 16
+GOLDEN = {"groups": {"a": {"core": 4, "mem": 1024},
+                     "b": {"core": 8, "mem": 2048}},
+          "nodes": {"a": 6, "b": 4}}
+GOLDEN_WL = dict(mean_interarrival_s=25.0, duration_median_s=900.0,
+                 duration_sigma=1.1, node_weights={1: 0.5, 2: 0.3, 4: 0.2},
+                 resources={"core": (1, 4), "mem": (64, 1024)})
+FAIL_MTBF_S, FAIL_REPAIR_S, FAIL_SEED = 1_500_000.0, 7200.0, 7
+QUARANTINE_S, CKPT_EVERY_S, TELE_STRIDE = 3600, 1800, 50
+# numpy twins of phases 2-3, kept for the fleet phases:
+# (phase, dispatcher) -> (Recorder, summary, wall seconds)
+TWINS = {}
 
 
 def log(obj) -> None:
@@ -225,8 +273,10 @@ class Recorder(SchedulerBase):
         self.inner = inner
         self.name = inner.name
         self.traces, self.launches, self.trips = [], [], []
+        self.queues = []          # queued jobs at each dispatch event
 
     def plan(self, ctx):
+        self.queues.append(len(ctx.n_nodes))
         l0 = counters.launch_count()
         plan = self.inner.plan(ctx)
         self.launches.append(counters.launch_count() - l0)
@@ -279,6 +329,8 @@ def run_pair(tap, system, jobs, label, vx_sched, np_sched, kind,
         rows[engine] = (rec, sim.summary, wall, dict(tap.peak), prof)
     rec, summ, wall, peak, _ = rows["cuda"]
     twin, twin_summ, twin_wall, _, _ = rows["numpy"]
+    TWINS[(tap.phase, np_sched.dispatcher_name)] = (twin, twin_summ,
+                                                    twin_wall)
     for engine in rows:
         got = rows[engine][0].traces
         if got != twin.traces:
@@ -393,7 +445,9 @@ def bound(name, shapes):
     and C are counted at their element size; inputs read once, outputs
     written once)."""
     t_exp = 0.0
-    if name == "ebf_shadow":                      # sparse, grouped by node
+    if name == "fleet_engine":                    # the batch's SimState
+        nbytes, ops = 2 * shapes[0], 0            # read once, written once
+    elif name == "ebf_shadow":                    # sparse, grouped by node
         m, n, r, nnz = shapes
         nbytes = 4 * (n * r + r + n + 1 + nnz * (1 + r) + m)
         ops = 2 * (n + nnz) * r + m               # adds, compares; scan
@@ -821,6 +875,454 @@ def check_consistency(dev):
                              "train-mode forward by more than 5e-4")
 
 
+# ----------------------------------------------------------------------
+# the fleet: every event of a sim in one CUDA thread block
+# ----------------------------------------------------------------------
+def tag_of(sc, ac):
+    return f"{SCHED_NAMES[sc]}-{ALLOC_NAMES[ac]}"
+
+
+def policy_sims(base, seed=None, suffix=""):
+    """The 8 Table-2 policies on one built state (the job rows do not
+    depend on the policy)."""
+    return [FleetSim(f"{tag_of(sc, ac)}{suffix}",
+                     base.state._replace(sched_id=np.int32(sc),
+                                         alloc_id=np.int32(ac)),
+                     base.meta, sc, ac, seed)
+            for sc, ac in POLICIES]
+
+
+def batch_bytes(states):
+    """Bytes of the stacked SimState of ``states``."""
+    return sum(np.asarray(x).nbytes for st in states for x in st)
+
+
+def check_invariants(res, i):
+    """Every job COMPLETED or REJECTED, every node's availability back to
+    its capacity, no start before its submission, and the counters and
+    the event log adding up."""
+    f, sim = res.finals[i], res.sims[i]
+    live = np.zeros(f.submit.shape[0], dtype=bool)    # pad rows: False
+    live[:len(sim.meta.ids)] = [jid is not None for jid in sim.meta.ids]
+    st, start, submit = f.state[live], f.start[live], f.submit[live]
+    n = int(live.sum())
+    ev = int(f.n_events)
+    failed = []
+    if not np.isin(st, (COMPLETED, REJECTED)).all():
+        failed.append("a job neither completed nor rejected")
+    if not np.array_equal(f.avail, f.capacity):
+        failed.append("final avail != capacity")
+    ran = start != UNSET_I
+    if (start[ran] < submit[ran]).any():
+        failed.append("a start before its submission")
+    if not (int(f.n_submitted) == n == int(f.n_completed)
+            + int(f.n_rejected)):
+        failed.append("submitted/completed/rejected do not add up")
+    if int((st == COMPLETED).sum()) != int(f.n_completed):
+        failed.append("completed count != COMPLETED rows")
+    if int(f.log_started[:ev].sum()) != int(f.n_started) + int(
+            f.n_requeued):
+        failed.append("logged starts != starts")
+    if ev > f.log_t.shape[0] or int(f.steps) != ev or (
+            np.diff(f.log_t[:ev]) < 0).any():
+        failed.append("event log out of order or overflowed")
+    if failed:
+        raise AssertionError(f"fleet {sim.name}: {'; '.join(failed)}")
+
+
+def twin_trace(rec):
+    """The job table a numpy twin's Recorder saw: {id: [start, nodes]}."""
+    return {str(jid): [t, [int(x) for x in nodes]]
+            for t, plan in rec.traces for jid, nodes in plan}
+
+
+def check_against_twin(res, i, rec, summ, label):
+    """Job by job (start, nodes, state) and the summary counters of a
+    sim run to the end, against a numpy twin run to the end."""
+    got = res.trace(i)
+    want = {jid: v + ["COMPLETED"] for jid, v in twin_trace(rec).items()}
+    for jid in got:
+        want.setdefault(jid, [None, [], "REJECTED"])
+    if set(want) != set(got):
+        raise AssertionError(f"{label}: job ids differ from the twin")
+    diff = [j for j in got if got[j] != want[j]]
+    if diff:
+        raise AssertionError(f"{label}: {len(diff)} jobs differ from the "
+                             f"numpy twin, e.g. {diff[0]}: {got[diff[0]]} "
+                             f"!= {want[diff[0]]}")
+    fs = res.summary(i)
+    for k in ("events", "submitted", "completed", "rejected",
+              "sim_end_time"):
+        if fs[k] != summ[k]:
+            raise AssertionError(f"{label}: summary {k} {fs[k]} != "
+                                 f"{summ[k]}")
+
+
+def check_prefix(res, i, rec, label):
+    """The first dispatch events of a sim against a twin cut there: per
+    event the time, queue before and after, jobs started, and the start
+    and nodes of every job started by then."""
+    f = res.finals[i]
+    ev = int(f.n_events)
+    q0 = f.log_queue[:ev] + f.log_started[:ev]
+    disp = np.flatnonzero(q0 > 0)[:len(rec.traces)]
+    if len(disp) != len(rec.traces):
+        raise AssertionError(f"{label}: fewer dispatch events than the twin")
+    rows = {jid: r for r, jid in enumerate(res.sims[i].meta.ids)
+            if jid is not None}
+    for e, (t, plan), q in zip(disp, rec.traces, rec.queues):
+        if (int(f.log_t[e]), int(q0[e]), int(f.log_started[e])) != (
+                t, q, len(plan)):
+            raise AssertionError(f"{label}: event {e} (t {t}) differs from "
+                                 f"the numpy twin")
+        for jid, nodes in plan:
+            r = rows[str(jid)]
+            if (int(f.start[r]), [int(x) for x in
+                                  f.assigned[r, :len(nodes)]]) != (
+                    t, [int(x) for x in nodes]):
+                raise AssertionError(f"{label}: job {jid} differs from the "
+                                     f"numpy twin")
+    return len(disp)
+
+
+def run_fleet(sims, profile=False):
+    """One counted ``FleetRunner().run`` (on the card, every visible
+    device); with ``profile``, under the profiler for the device time.
+    Returns (result, host wall s, kernel device s, all device s)."""
+    with (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+          if profile else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        res = FleetRunner().run(sims)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ours = total = None
+    if profile:
+        ours, total = (x * 1e-6 for x in device_time_us(prof))
+    return res, wall, ours, total
+
+
+def fleet_seth_grid():
+    """Phase 8: 8 policies x 16 seeds of Seth in one FleetRunner.run."""
+    t0 = time.perf_counter()
+    bases = [FleetRunner.build("seth", seth_jobs(Job, SETH_JOBS, seed), SETH,
+                               SCHED_FIFO, seed=seed)
+             for seed in range(FLEET_SEEDS)]
+    sims = [sim for seed, b in enumerate(bases)
+            for sim in policy_sims(b, seed, f"-s{seed}")]
+    build_s = time.perf_counter() - t0
+    counters.reset_device_launches()
+    res, wall, ours, total = run_fleet(sims, profile=True)
+    launches = counters.device_launch_stats()
+    events = sum(int(f.n_events) for f in res.finals)
+    for i in range(len(sims)):
+        check_invariants(res, i)
+    twin_events = twin_wall = 0
+    for i, (sc, ac) in enumerate(POLICIES):        # seed 0 comes first
+        rec, summ, tw = TWINS[("seth", tag_of(sc, ac))]
+        check_against_twin(res, i, rec, summ, f"seth grid {sims[i].name}")
+        twin_events += summ["events"]
+        twin_wall += tw
+    # two lanes of the grid against their solo launches
+    names = [sim.name for sim in sims]
+    for i in (names.index("EBF-BF-s5"), names.index("SJF-FF-s11")):
+        solo = FleetRunner().run([sims[i]])
+        for k in SimState._fields:
+            if not np.array_equal(getattr(solo.finals[0], k),
+                                  getattr(res.finals[i], k)):
+                raise AssertionError(f"{sims[i].name}: solo launch differs "
+                                     f"in {k}")
+    log({"phase": "fleet_seth", "sims": len(sims), "seeds": FLEET_SEEDS,
+         "jobs_per_sim": SETH_JOBS, "build_s": build_s, "events": events,
+         "wall_s": wall, "events_per_s": events / wall,
+         "launches": res.launches, "fleet_wall_time_s": res.wall_time_s,
+         "kernel_device_s": ours, "device_busy_share": total / wall,
+         "twins_events_per_s": twin_events / twin_wall,
+         "twins_events_per_s_each": [TWINS[("seth", tag_of(*p))][1]["events"]
+                                     / TWINS[("seth", tag_of(*p))][2]
+                                     for p in POLICIES],
+         "grid_over_one_twin": (events / wall) / (twin_events / twin_wall),
+         "seed0_equal_to_twins": True, "invariants": True,
+         "solo_launches_equal": True, "cuda_launches": launches})
+    return launches, {"shape": [len(sims), res.finals[0].n_rows,
+                                SETH["nodes"]["seth"], 2],
+                      "ms": wall * 1e3, "device_ms": ours * 1e3,
+                      "bytes": batch_bytes(res.finals)}
+
+
+class TwinRun:
+    """What a numpy twin run in a worker process hands back: the
+    Recorder's per-event traces and queue lengths, the summary, the
+    wall time, and (failure twins) the job records and telemetry."""
+
+    def __init__(self, rec, summary, wall, records=None, telemetry=None):
+        self.traces, self.queues = rec.traces, rec.queues
+        self.summary, self.wall = summary, wall
+        self.records, self.telemetry = records, telemetry
+
+
+def make_sched(tag):
+    sched, alloc = tag.split("-")
+    return {"FIFO": FirstInFirstOut, "SJF": ShortestJobFirst,
+            "LJF": LongestJobFirst, "EBF": EasyBackfilling}[sched](
+        {"FF": FirstFit, "BF": BestFit}[alloc]())
+
+
+def seth_failures():
+    """Seth seed 0's FAIL/REPAIR schedule, over its submission span."""
+    horizon = max(j.submission_time for j in seth_jobs(Job, SETH_JOBS))
+    return horizon, FailureInjector(
+        SETH["nodes"]["seth"], mtbf_s=FAIL_MTBF_S, repair_s=FAIL_REPAIR_S,
+        horizon_s=horizon, seed=FAIL_SEED)
+
+
+def twin_job(system, tag, max_events=None, failures=False):
+    """A numpy twin (worker process): the RICC-sized system, or Seth
+    under the failure schedule with checkpoint credit, a quarantine and
+    telemetry."""
+    torch.set_num_threads(1)
+    rec = Recorder(make_sched(tag))
+    kw, jobs = {}, ricc_jobs(Job, RICC_JOBS)
+    if failures:
+        kw = dict(failures=seth_failures()[1],
+                  checkpoint=CheckpointRestartPolicy(CKPT_EVERY_S),
+                  quarantine_s=QUARANTINE_S, telemetry_stride=TELE_STRIDE)
+        jobs = seth_jobs(Job, SETH_JOBS)
+    with tempfile.TemporaryDirectory() as td:
+        sim = Simulator(jobs, system, rec, output_dir=td, name="twin", **kw)
+        t0 = time.perf_counter()
+        out = sim.start_simulation(write_output=failures,
+                                   max_events=max_events)
+        wall = time.perf_counter() - t0
+        records = None
+        if failures:
+            with open(out) as fh:
+                records = {str(r["id"]): [r["start"], list(r["assigned"]),
+                                          r["state"]]
+                           for r in map(json.loads, fh)}
+    return TwinRun(rec, sim.summary, wall, records,
+                   getattr(sim, "telemetry", None))
+
+
+def plain_job(states, use_kernel):
+    """advance_plain on CPU tensors (worker process): numpy finals."""
+    torch.set_num_threads(1)
+    return [SimState(*(x.numpy() for x in advance_plain(st, use_kernel)))
+            for st in plain_states(states)]
+
+
+def fleet_ricc(twins):
+    """Phase 9: the 8 policies on the RICC-sized system, the 6 blocking
+    rows to the end against numpy twins, the EBF rows against twins cut
+    at RICC_MAX_EVENTS events (``twins``: tag -> pending TwinRun)."""
+    base = FleetRunner.build("ricc", ricc_jobs(Job, RICC_JOBS), RICC,
+                             SCHED_FIFO)
+    sims = policy_sims(base)
+    counters.reset_device_launches()
+    res, wall, ours, total = run_fleet(sims, profile=True)
+    launches = counters.device_launch_stats()
+    for i in range(len(sims)):
+        check_invariants(res, i)
+    rows = []
+    for i, (sc, ac) in enumerate(POLICIES):
+        tag = tag_of(sc, ac)
+        label, f = f"ricc {tag}", res.finals[i]
+        got = TWINS.get(("ricc", tag)) if sc == SCHED_EBF else None
+        if got:                                  # phase 3's twin
+            rec, summ, tw = got
+        else:
+            twin = twins[tag].get()
+            rec, summ, tw = twin, twin.summary, twin.wall
+        row = {"row": tag, "events": int(f.n_events), "twin_wall_s": tw,
+               "twin_events": summ["events"],
+               "twin_events_per_s": summ["events"] / tw}
+        if sc == SCHED_EBF:
+            row["checked_dispatch_events"] = check_prefix(res, i, rec, label)
+        else:
+            check_against_twin(res, i, rec, summ, label)
+        rows.append(row)
+    events = sum(int(f.n_events) for f in res.finals)
+    log({"phase": "fleet_ricc", "sims": len(sims), "jobs": RICC_JOBS,
+         "nodes": RICC["nodes"]["ricc"], "events": events, "wall_s": wall,
+         "events_per_s": events / wall, "launches": res.launches,
+         "kernel_device_s": ours, "device_busy_share": total / wall,
+         "rows": rows, "equal_to_twins": True, "invariants": True,
+         "cuda_launches": launches})
+    return launches
+
+
+def fleet_failures(twins):
+    """Phase 10: Seth under a seeded FAIL/REPAIR schedule with checkpoint
+    credit, a quarantine and telemetry: FIFO-FF and EBF-BF against the
+    host Simulator(failures=...) twin (``twins``: tag -> pending
+    TwinRun)."""
+    horizon, inj = seth_failures()
+    tags = [("FIFO-FF", SCHED_FIFO, ALLOC_FF), ("EBF-BF", SCHED_EBF, ALLOC_BF)]
+    sims = [FleetRunner.build(tag, seth_jobs(Job, SETH_JOBS), SETH, sc,
+                              alloc_id=ac, failures=inj,
+                              quarantine_s=QUARANTINE_S,
+                              ckpt_every_s=CKPT_EVERY_S,
+                              telemetry_stride=TELE_STRIDE)
+            for tag, sc, ac in tags]
+    counters.reset_device_launches()
+    res, wall, _, _ = run_fleet(sims)
+    launches = counters.device_launch_stats()
+    rows = []
+    for i, (tag, _, _) in enumerate(tags):
+        check_invariants(res, i)
+        host = twins[tag].get()
+        got, want = res.trace(i), host.records
+        diff = [j for j in want if want[j] != got.get(j)]
+        if diff or set(got) != set(want):
+            raise AssertionError(f"failures {tag}: {len(diff)} jobs differ "
+                                 f"from the host twin")
+        summ = res.summary(i)
+        if summ["failures"] != host.summary["failures"]:
+            raise AssertionError(f"failures {tag}: counters "
+                                 f"{summ['failures']} != "
+                                 f"{host.summary['failures']}")
+        if host.summary["failures"]["requeued_jobs"] == 0:
+            raise AssertionError(f"failures {tag}: no job was requeued")
+        host.telemetry.assert_parity(res.telemetry(i))
+        rows.append({"row": tag, "events": summ["events"],
+                     "failures": summ["failures"],
+                     "telemetry_samples": res.telemetry(i).n_samples,
+                     "phase_counters": summ["telemetry"]["phase_counters"],
+                     "host_wall_s": host.wall})
+    log({"phase": "fleet_failures", "fail_events": int(inj.times.shape[0]),
+         "horizon_s": horizon, "wall_s": wall, "launches": res.launches,
+         "rows": rows, "equal_to_host": True, "cuda_launches": launches})
+    return launches
+
+
+def plain_states(states):
+    """Unbatched CPU tensors of numpy states, for the plain version."""
+    return [SimState(*(torch.from_numpy(np.asarray(x, dtype=np.int32))
+                       for x in st)) for st in states]
+
+
+def plain_cases():
+    """The small cases the kernel is held against its plain version on:
+    the golden scenario's 8 policies with and without the prefilter, a
+    failure schedule with telemetry (the reference's failure tests'
+    scenario) with and without it, and those lanes padded."""
+    golden = [s.state for s in policy_sims(FleetRunner.build(
+        "golden", SyntheticWorkload(400, seed=29, **GOLDEN_WL), GOLDEN,
+        SCHED_FIFO, job_factory=JobFactory()))]
+    failing = [s.state for s in policy_sims(FleetRunner.build(
+        "failing", SyntheticWorkload(150, seed=7, **GOLDEN_WL), GOLDEN,
+        SCHED_FIFO, job_factory=JobFactory(),
+        failures=FailureInjector(10, mtbf_s=4000.0, repair_s=900.0,
+                                 horizon_s=6000, seed=3),
+        quarantine_s=1800, ckpt_every_s=600, telemetry_stride=5))]
+    m, k = failing[0].n_rows, failing[0].assigned.shape[1]
+    f, ts = failing[0].fail_ev.shape[0], failing[0].tele_buf.shape[0]
+    padded = [s.pad_to(m + 37, k + 5, f + 16, ts + 64) for s in failing]
+    return [("golden", golden, False), ("golden", golden, True),
+            ("failures+telemetry", failing, False),
+            ("failures+telemetry", failing, True), ("padded", padded, True)]
+
+
+def fleet_kernel_vs_plain(dev, cases, plains):
+    """Phase 11: the kernel against advance_plain (``plains``, pending
+    from worker processes, on the same inputs) on ``cases``, the whole
+    final SimState equal; then the kernel's time and the plain version's
+    on the card at the golden EBF-BF case."""
+    n_sims = 0
+    for (name, states, use_kernel), pending in zip(cases, plains):
+        got = unstack(advance(stack(states, dev), use_kernel))
+        for g, want in zip(got, pending.get()):
+            for key in SimState._fields:
+                if not np.array_equal(getattr(g, key), getattr(want, key)):
+                    raise AssertionError(f"fleet_engine {name} "
+                                         f"use_kernel={use_kernel}: {key} "
+                                         f"differs from advance_plain")
+            n_sims += 1
+    one = cases[0][1][POLICIES.index((SCHED_EBF, ALLOC_BF))]
+    base = stack([one], dev)
+    copies = [SimState(*(t.clone() for t in base)) for _ in range(9)]
+    advance(copies[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c in copies[1:5]:
+        advance(c)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 4
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for c in copies[5:]:
+            advance(c)
+        torch.cuda.synchronize()
+    device = device_time_us(prof)[0] * 1e-3 / 4
+    on_card = SimState(*(t[0] for t in stack([one], dev)))
+    t0 = time.perf_counter()
+    plain = advance_plain(on_card, False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for key, a, b in zip(SimState._fields, plain, copies[0]):
+        if not torch.equal(a, b[0]):
+            raise AssertionError(f"fleet_engine: {key} differs from the "
+                                 f"plain version on the card")
+    b_ms, b_by = bound("fleet_engine", (batch_bytes([one]),))
+    log({"phase": "kernel", "name": "fleet_engine", "path": "golden",
+         "cases": len(cases), "sims": n_sims,
+         "shape": [1, one.n_rows, one.n_nodes, one.avail.shape[1]],
+         "events": int(copies[0].n_events[0]), "ms": ms,
+         "device_ms": device if device > 0 else "not measured",
+         "plain_ms_on_card": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "max_abs_err": 0.0})
+    return ms, plain_ms, b_ms, b_by
+
+
+def fleet(dev):
+    """Phases 8-11; returns the kernel table's fleet_engine row.  The
+    numpy twins of phases 9-10 and the plain runs of phase 11 go to
+    worker processes first (host work only), and run while the card
+    runs the fleet."""
+    cases = plain_cases()
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        ricc_twins = {tag_of(sc, ac): pool.apply_async(twin_job, (
+            RICC, tag_of(sc, ac))) for sc, ac in POLICIES
+            if sc != SCHED_EBF}
+        ricc_twins["EBF-FF"] = pool.apply_async(
+            twin_job, (RICC, "EBF-FF", RICC_MAX_EVENTS))
+        fail_twins = {tag: pool.apply_async(twin_job, (SETH, tag, None,
+                                                       True))
+                      for tag in ("FIFO-FF", "EBF-BF")}
+        plains = [pool.apply_async(plain_job, (states, use_kernel))
+                  for _, states, use_kernel in cases]
+        seth_launches, grid = fleet_seth_grid()
+        ricc_launches = fleet_ricc(ricc_twins)
+        fail_launches = fleet_failures(fail_twins)
+        ms, plain_ms, b_ms, b_by = fleet_kernel_vs_plain(dev, cases, plains)
+        pool.close()
+        pool.join()
+    log({"phase": "fleet", "workers": workers,
+         "total_s": time.perf_counter() - t0})
+    launches = sum(d.get("fleet_engine", 0) for d in (
+        seth_launches, ricc_launches, fail_launches))
+    for name, got in (("seth", seth_launches), ("ricc", ricc_launches),
+                      ("failures", fail_launches)):
+        if not got.get("fleet_engine"):
+            raise AssertionError(f"fleet {name}: no CUDA launch of "
+                                 f"fleet_engine")
+    b_grid, _ = bound("fleet_engine", (grid["bytes"],))
+    log({"phase": "kernel", "name": "fleet_engine", "path": "seth_grid",
+         "shape": grid["shape"], "launches": seth_launches["fleet_engine"],
+         "wall_ms": grid["ms"], "device_ms": grid["device_ms"],
+         "bound_ms": b_grid, "bound_by": "bytes"})
+    src, replaces, _ = KERNELS["fleet_engine"]
+    return {"name": "fleet_engine", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1005,6 +1507,9 @@ def run(dev) -> int:
     scan_launches, scan_inputs = serve_mamba(dev)
     table.append(check_scan(dev, scan_inputs, scan_launches))
     check_consistency(dev)
+
+    # ---- 8.-11. the fleet engine -------------------------------------
+    table.append(fleet(dev))
 
     log({"phase": "done", "total_s": time.perf_counter() - t_start})
     log(smi)

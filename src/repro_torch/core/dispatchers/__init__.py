@@ -9,12 +9,16 @@ from .schedulers import (
     EasyBackfilling,
     RejectAll,
 )
+from .advanced import (
+    PriorityAging,
+    WalltimeCorrectedEBF,
+    EnergyCappedScheduler,
+)
 
 # NOTE: the vectorized engine (BatchProbe, VectorizedAllocator,
 # VectorizedEasyBackfilling) lives in ``.vectorized`` and is imported
 # explicitly by its users — pulling it in here would make every
-# numpy-only simulation pay the torch import cost.  The advanced
-# dispatchers of the reference (``advanced.py``) are not ported yet.
+# numpy-only simulation pay the torch import cost.
 
 __all__ = [
     "DispatchContext",
@@ -31,4 +35,7 @@ __all__ = [
     "LongestJobFirst",
     "EasyBackfilling",
     "RejectAll",
+    "PriorityAging",
+    "WalltimeCorrectedEBF",
+    "EnergyCappedScheduler",
 ]

@@ -54,6 +54,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # dtype code, aligned, device, int out[5]
         "selective_scan_attributes": [_I, _I, _I, _P],
     },
+    "fleet_engine": {
+        # field pointers, field strides, n_fields, scratch, B, M, N, R, K,
+        # E, F, S, use_kernel, device, stream
+        "fleet_engine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _P],
+        # N, R -> dynamic shared memory bytes
+        "fleet_engine_shared_bytes": [_I, _I],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -69,6 +77,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -15,11 +15,8 @@
 // J * ceil(N/32) words plus N floats: 0.63 MB instead of 40 MB at
 // J 4893 x N 1024.  The score must be bitwise equal to the host's numpy
 // float32 reconcile (BatchProbe.find): one ulp reorders Best-Fit ties and
-// changes the trace.  So: subtract as ints, convert with round-to-nearest,
-// divide correctly rounded (__fdiv_rn; the build never uses
-// --use_fast_math), add in r order with __fadd_rn.  Nodes that are down or
-// quarantined carry avail = -1 and never fit, even where a request column
-// is 0, because the compare is signed.
+// changes the trace.  The fit compare and the load arithmetic live in
+// alloc_fit.cuh, shared with the fleet engine's prefilter and probes.
 //
 // Bound on the card: bytes (J*R + 2*N*R words in, J*W + N out), ~0.2 us at
 // the RICC peak, far below the launch.  Design: a warp covers 32
@@ -35,6 +32,8 @@
 // once per node.  The launcher selects the tensors' device first: this
 // library links its own CUDA runtime.
 #include <cuda_runtime.h>
+
+#include "alloc_fit.cuh"
 
 namespace {
 
@@ -64,9 +63,7 @@ alloc_score_kernel(const int* __restrict__ req, const int* __restrict__ avail,
     float s = 0.0f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int cr = c[r];
-      const float u = __fdiv_rn(__int2float_rn(cr - a[r]),
-                                __int2float_rn(max(cr, 1)));
+      const float u = alloc_fit::used_share(c[r], a[r]);
       s = (r == 0) ? u : __fadd_rn(s, u);
     }
     score[n] = s;
@@ -82,10 +79,7 @@ alloc_score_kernel(const int* __restrict__ req, const int* __restrict__ avail,
     unsigned mine = 0;                    // row j0 + lane's word
 #pragma unroll 8
     for (int k = 0; k < kRows; ++k) {
-      const int* q = s_req + k * R;
-      int ok = live ? 1 : 0;
-#pragma unroll
-      for (int r = 0; r < R; ++r) ok &= (a[r] >= q[r]);
+      const int ok = live ? alloc_fit::fits<R>(a, s_req + k * R) : 0;
       const unsigned b = __ballot_sync(0xffffffffu, ok);
       if (lane == k) mine = b;
     }

@@ -149,3 +149,55 @@ def shadow_from_releases(avail: np.ndarray, head_vec: np.ndarray,
     shadow_avail = avail.copy()
     np.add.at(shadow_avail, rel.entry_node[upto], rel.entry_vec[upto])
     return int(rel.times[m]), shadow_avail
+
+
+# ----------------------------------------------------------------------
+# the fleet engine's walk: one release per trip
+# ----------------------------------------------------------------------
+#: the fleet engine's +infinity sentinel (``fleet.state.INF_I``)
+INF_I = 1 << 30
+
+
+def shadow_walk(avail: torch.Tensor, rel: torch.Tensor,
+                assigned: torch.Tensor, req: torch.Tensor,
+                head_req: torch.Tensor, need: int,
+                node_ok: Optional[torch.Tensor] = None):
+    """The fleet engine's shadow scan over its row arrays, in plain
+    PyTorch: the semantics of :func:`shadow_from_releases`.
+
+    ``avail int32[N, R]`` is the availability the walk starts from;
+    ``rel int32[M]`` the per-row estimated release times, ``INF_I`` on
+    every row that takes no part (an all-INF ``rel`` walks nothing);
+    ``assigned int32[M, K]`` node ids padded with N; ``req int32[M, R]``;
+    ``head_req int32[R]`` and ``need`` the blocked head's request.
+    ``node_ok bool[N]`` (optional) leaves ineligible (down or
+    quarantined) nodes out of the fit count.
+
+    Each trip releases the earliest-releasing row (the lowest row on
+    ties) and, only once no remaining row shares its timestamp, counts
+    the fitting nodes.  Returns ``(found, shadow_time, shadow_avail)``:
+    the availability after the last group released (every row's release
+    when the head never fits, and then ``shadow_time`` is 0).  The CUDA
+    fleet engine carries the same walk as a device function.
+    """
+    n = avail.shape[0]
+    cur = avail.clone()
+    rel = rel.clone()
+    found, sh_t = False, 0
+    j = int(torch.argmin(rel))
+    t_j = int(rel[j])
+    while not found and t_j < INF_I:
+        nodes = assigned[j].long()
+        nodes = nodes[nodes < n]
+        cur.index_add_(0, nodes, req[j].expand(nodes.shape[0], -1))
+        rel[j] = INF_I
+        j = int(torch.argmin(rel))
+        t2 = int(rel[j])
+        if t2 > t_j:
+            fitn = (cur >= head_req[None, :]).all(dim=1)
+            if node_ok is not None:
+                fitn = fitn & node_ok
+            if int(fitn.sum()) >= need:
+                found, sh_t = True, t_j
+        t_j = t2
+    return found, sh_t, cur

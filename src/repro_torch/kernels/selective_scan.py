@@ -5,7 +5,10 @@ D * u`` over the sequence, for the prefill and training forward of the
 Mamba mixer (``models/mamba.py``).  The kernel (``csrc/selective_scan.cu``)
 splits each channel's states over four lanes, stages the inputs in shared
 memory and reads ``u``, ``delta``, ``B`` and ``C`` in the caller's float
-type; the plain version is ``ref.selective_scan_ref``.
+type; the plain version is ``ref.selective_scan_ref``.  The kernel has no
+backward: on the card, gradients come from the plain version's VJP,
+recomputed on the saved inputs (:class:`_ScanWithPlainGrad`), as the
+reference pairs its Pallas forward with its oracle's VJP.
 """
 from __future__ import annotations
 
@@ -56,6 +59,37 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"selective_scan kernel takes S <= {MAX_S}, got {s}")
     if bt > 65535:
         raise ValueError(f"selective_scan kernel takes Bt <= 65535, got {bt}")
+    return _ScanWithPlainGrad.apply(u, delta, A, B, C, D)
+
+
+class _ScanWithPlainGrad(torch.autograd.Function):
+    """The kernel forward and, for the backward, the VJP of the plain
+    version recomputed under autograd on the saved inputs (the
+    reference's ``ops._scan_with_ref_grad``)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D):
+        ctx.save_for_backward(u, delta, A, B, C, D)
+        return _launch(u, delta, A, B, C, D)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        saved = [x.detach().requires_grad_(need)
+                 for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wrt = [x for x in saved if x.requires_grad]
+        with torch.enable_grad():
+            y, h_last = ref.selective_scan_ref(*saved)
+            grads = iter(torch.autograd.grad((y, h_last), wrt,
+                                             (grad_y, grad_h)))
+        return tuple(next(grads) if x.requires_grad else None
+                     for x in saved)
+
+
+def _launch(u, delta, A, B, C, D):
+    """Launch the kernel on checked CUDA inputs: (y, h_last)."""
+    bt, length, di = u.shape
+    s = A.shape[1]
+    dev = u.device
     if len({u.dtype, delta.dtype, B.dtype, C.dtype}) > 1:
         u, delta, B, C = (t.to(torch.float32) for t in (u, delta, B, C))
     A, D = A.to(torch.float32), D.to(torch.float32)

@@ -6,9 +6,9 @@ through a single schema:
 
 * the host :class:`~repro_torch.core.monitors.UtilizationMonitor` accumulates
   telemetry-schema sample rows per observed event;
-* the compiled fleet engine (in the reference; not ported yet) writes
-  the same rows into a fixed-capacity device buffer inside its device
-  loop (``SimState.tele_buf``), plus per-phase profile counters;
+* the fleet engine writes the same rows into a fixed-capacity device
+  buffer inside its device loop (``SimState.tele_buf``, written by the
+  ``fleet_engine`` kernel on the card), plus per-phase profile counters;
 * both decode into :class:`TelemetryTrace` — a downsampled sample matrix
   ``[S, 5 + R]`` + phase-counter totals — with one JSONL structured-trace
   format (:meth:`TelemetryTrace.write_jsonl` / ``read_jsonl``) consumed

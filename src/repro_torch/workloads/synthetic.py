@@ -3,10 +3,9 @@
 Produces seeded, lazily-streamed workload records directly usable as a
 ``Simulator`` workload source (and by the core benchmarks): Poisson
 arrivals, lognormal durations, configurable node-count and per-node
-resource-request distributions.  Unlike the reference's ``generator``
-(which *mimics* a real trace's empirical distributions, paper §7.3,
-not ported yet), this module
-generates from first-principles parametric distributions — it opens
+resource-request distributions.  Unlike :mod:`repro_torch.generator`
+(which *mimics* a real trace's empirical distributions, paper §7.3),
+this module generates from first-principles parametric distributions — it opens
 scenario diversity beyond SWF files and needs no input trace.
 
 Records carry BOTH request representations so any job factory works:
