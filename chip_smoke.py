@@ -49,17 +49,23 @@ and drives the simulator's main path on the card:
    sims of 10,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
    phase 2's numpy twins job by job and in the summary counters, every
    sim's invariants, two lanes equal to their solo launches; events/s,
-   the twins' events/s and the device busy share;
+   the twins' events/s and the device busy share; then each of the
+   run's two launches (blocking, EBF) again, ``advance`` alone on the
+   padded states, timed with CUDA events (kernel ms, us per event per
+   sim) and equal to the run's finals;
 9. the 8 policies on the RICC-sized system (5,000 jobs): the 6 blocking
    rows to the end against numpy twins, the EBF rows against twins cut
-   at 150 events (phase 3's EBF-BF twin, a new EBF-FF one);
+   at 150 events (phase 3's EBF-BF twin, a new EBF-FF one); its two
+   launches timed as in phase 8;
 10. Seth under a seeded FAIL/REPAIR schedule with checkpoint credit, a
    quarantine and telemetry: FIFO-FF and EBF-BF equal to the host
    ``Simulator(failures=...)`` (traces, failure counters, telemetry);
 11. the kernel against ``advance_plain`` (CPU, same inputs) on the
    golden scenario's 8 policies with and without the prefilter, a
    failure schedule with telemetry, and padded lanes (whole final state
-   equal); its time and the plain version's on the card.
+   equal); its time and the plain version's on the card, and its device
+   time from the profiler over 4 launches after a warm-up, in a fresh
+   process.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
@@ -1002,8 +1008,42 @@ def run_fleet(sims, profile=False):
     return res, wall, ours, total
 
 
-def fleet_seth_grid():
-    """Phase 8: 8 policies x 16 seeds of Seth in one FleetRunner.run."""
+def time_launches(res, sims, grid, dev):
+    """The launches of a ``FleetRunner.run`` again, one per cost class:
+    ``advance`` alone on the states the runner padded, stacked on the
+    card, timed with CUDA events; its finals must equal the run's.  Logs
+    one line per launch (kernel ms, us per event per sim)."""
+    for cls in ("blocking", "ebf"):
+        idx = [i for i, s in enumerate(sims)
+               if (s.sched_id == SCHED_EBF) == (cls == "ebf")]
+        if not idx:
+            continue
+        f = res.finals[idx[0]]
+        batch = stack([sims[i].state.pad_to(
+            f.n_rows, f.assigned.shape[1], f.fail_ev.shape[0],
+            f.tele_buf.shape[0]) for i in idx], dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        advance(batch)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        for i, g in zip(idx, unstack(batch)):
+            for k in SimState._fields:
+                if not np.array_equal(getattr(g, k), getattr(res.finals[i], k)):
+                    raise AssertionError(f"{grid} {sims[i].name}: the timed "
+                                         f"launch differs in {k}")
+        events = sum(int(res.finals[i].n_events) for i in idx)
+        log({"phase": "fleet_launch", "grid": grid, "launch": cls,
+             "sims": len(idx), "events": events, "ms": ms,
+             "us_per_event_per_sim": ms * 1e3 * len(idx) / events})
+
+
+def fleet_seth_grid(dev):
+    """Phase 8: 8 policies x 16 seeds of Seth in one FleetRunner.run,
+    then each of its two launches timed alone."""
     t0 = time.perf_counter()
     bases = [FleetRunner.build("seth", seth_jobs(Job, SETH_JOBS, seed), SETH,
                                SCHED_FIFO, seed=seed)
@@ -1032,6 +1072,7 @@ def fleet_seth_grid():
                                   getattr(res.finals[i], k)):
                 raise AssertionError(f"{sims[i].name}: solo launch differs "
                                      f"in {k}")
+    time_launches(res, sims, "seth", dev)
     log({"phase": "fleet_seth", "sims": len(sims), "seeds": FLEET_SEEDS,
          "jobs_per_sim": SETH_JOBS, "build_s": build_s, "events": events,
          "wall_s": wall, "events_per_s": events / wall,
@@ -1111,10 +1152,11 @@ def plain_job(states, use_kernel):
             for st in plain_states(states)]
 
 
-def fleet_ricc(twins):
+def fleet_ricc(twins, dev):
     """Phase 9: the 8 policies on the RICC-sized system, the 6 blocking
     rows to the end against numpy twins, the EBF rows against twins cut
-    at RICC_MAX_EVENTS events (``twins``: tag -> pending TwinRun)."""
+    at RICC_MAX_EVENTS events (``twins``: tag -> pending TwinRun); then
+    each of its two launches timed alone."""
     base = FleetRunner.build("ricc", ricc_jobs(Job, RICC_JOBS), RICC,
                              SCHED_FIFO)
     sims = policy_sims(base)
@@ -1142,6 +1184,7 @@ def fleet_ricc(twins):
             check_against_twin(res, i, rec, summ, label)
         rows.append(row)
     events = sum(int(f.n_events) for f in res.finals)
+    time_launches(res, sims, "ricc", dev)
     log({"phase": "fleet_ricc", "sims": len(sims), "jobs": RICC_JOBS,
          "nodes": RICC["nodes"]["ricc"], "events": events, "wall_s": wall,
          "events_per_s": events / wall, "launches": res.launches,
@@ -1223,6 +1266,24 @@ def plain_cases():
             ("failures+telemetry", failing, True), ("padded", padded, True)]
 
 
+def golden_device_ms(state, launches=4):
+    """The profiler's device time of one ``fleet_engine`` launch on
+    ``state`` (worker process, on the card): a warm-up launch, then
+    ``launches`` profiled ones."""
+    dev = torch.device("cuda")
+    base = stack([state], dev)
+    copies = [SimState(*(t.clone() for t in base))
+              for _ in range(launches + 1)]
+    advance(copies[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for c in copies[1:]:
+            advance(c)
+        torch.cuda.synchronize()
+    return device_time_us(prof)[0] * 1e-3 / launches
+
+
 def fleet_kernel_vs_plain(dev, cases, plains):
     """Phase 11: the kernel against advance_plain (``plains``, pending
     from worker processes, on the same inputs) on ``cases``, the whole
@@ -1240,7 +1301,7 @@ def fleet_kernel_vs_plain(dev, cases, plains):
             n_sims += 1
     one = cases[0][1][POLICIES.index((SCHED_EBF, ALLOC_BF))]
     base = stack([one], dev)
-    copies = [SimState(*(t.clone() for t in base)) for _ in range(9)]
+    copies = [SimState(*(t.clone() for t in base)) for _ in range(5)]
     advance(copies[0])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1251,12 +1312,13 @@ def fleet_kernel_vs_plain(dev, cases, plains):
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / 4
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for c in copies[5:]:
-            advance(c)
-        torch.cuda.synchronize()
-    device = device_time_us(prof)[0] * 1e-3 / 4
+    # the profiler's device time, in a fresh process: this one's earlier
+    # profiler sessions leave it recording no kernel of this window
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        device = pool.apply(golden_device_ms, (one,))
+    if not device > 0:
+        raise AssertionError("fleet_engine golden: the profiler recorded no "
+                             "kernel")
     on_card = SimState(*(t[0] for t in stack([one], dev)))
     t0 = time.perf_counter()
     plain = advance_plain(on_card, False)
@@ -1271,7 +1333,7 @@ def fleet_kernel_vs_plain(dev, cases, plains):
          "cases": len(cases), "sims": n_sims,
          "shape": [1, one.n_rows, one.n_nodes, one.avail.shape[1]],
          "events": int(copies[0].n_events[0]), "ms": ms,
-         "device_ms": device if device > 0 else "not measured",
+         "device_ms": device,
          "plain_ms_on_card": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "max_abs_err": 0.0})
     return ms, plain_ms, b_ms, b_by
@@ -1296,8 +1358,8 @@ def fleet(dev):
                       for tag in ("FIFO-FF", "EBF-BF")}
         plains = [pool.apply_async(plain_job, (states, use_kernel))
                   for _, states, use_kernel in cases]
-        seth_launches, grid = fleet_seth_grid()
-        ricc_launches = fleet_ricc(ricc_twins)
+        seth_launches, grid = fleet_seth_grid(dev)
+        ricc_launches = fleet_ricc(ricc_twins, dev)
         fail_launches = fleet_failures(fail_twins)
         ms, plain_ms, b_ms, b_by = fleet_kernel_vs_plain(dev, cases, plains)
         pool.close()

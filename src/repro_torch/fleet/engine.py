@@ -616,10 +616,9 @@ def _launch_kernel(batch: SimState, use_kernel: bool) -> None:
     if smem > limit:
         raise ValueError(f"fleet_engine: N {n} x R {r} needs {smem} bytes "
                          f"of shared memory per block, the card has {limit}")
-    w = -(-n // 32)
-    # per sim: a row column, the backfill stamps, the shadow walk's
-    # running-row list, and the round's fit bits (use_kernel)
-    scratch = torch.empty((b, 3 * m + (m * w if use_kernel else 0)),
+    # per sim: the running and queued row lists, two row columns and the
+    # shadow walk's release keys
+    scratch = torch.empty((b, lib.fleet_engine_scratch_ints(m)),
                           dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_uint64 * len(batch))(*(t.data_ptr() for t in batch))
     strides = (ctypes.c_int64 * len(batch))(*(t[0].numel() for t in batch))

@@ -61,6 +61,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
                                 _I, _I, _I, _P],
         # N, R -> dynamic shared memory bytes
         "fleet_engine_shared_bytes": [_I, _I],
+        # M -> int32 scratch elements per sim
+        "fleet_engine_scratch_ints": [_I],
     },
 }
 

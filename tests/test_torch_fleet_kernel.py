@@ -4,8 +4,15 @@ The kernel runs a whole simulation per thread block; its final
 :class:`SimState` must equal ``advance_plain``'s field by field, built in
 the reference's order: FIFO/SJF/LJF x FF, then EBF and BF, then failures
 (F > 0), then telemetry (S > 0), each with and without the fit-bit
-prefilter, and with padded lanes.  Imports no JAX, so it runs on a GPU
-machine with the port alone::
+prefilter, and with padded lanes.  The kernel keeps a running-row list
+and a rank-ordered queue list across events; the cases that work them
+hard: a queue over a thousand deep (the lists fill, compact and run
+empty), a host snapshot whose rows are already running and queued when
+the kernel starts, failures re-ranking victims behind a long queue, a
+host snapshot under failures (victims without a rank, which the
+reference orders its own way), and more nodes than threads.
+``tests/test_torch_fleet_deep.py`` holds ``advance_plain`` against the reference on the same cases.  Imports no
+JAX, so it runs on a GPU machine with the port alone::
 
     python -m pytest -q -m cuda tests/test_torch_fleet_kernel.py
 
@@ -16,10 +23,14 @@ import pytest
 import torch
 
 from repro_torch.cluster import FailureInjector
+from repro_torch.core.dispatchers import (BestFit, EasyBackfilling, FirstFit,
+                                          ShortestJobFirst)
 from repro_torch.core.job import JobFactory
+from repro_torch.core.simulator import Simulator
 from repro_torch.fleet import (ALLOC_BF, ALLOC_FF, SCHED_EBF, SCHED_FIFO,
                                SCHED_LJF, SCHED_SJF, FleetRunner, SimState,
                                advance, advance_plain, stack, unstack)
+from repro_torch.fleet.state import INF_I, QUEUED, RUNNING
 from repro_torch.kernels import counters
 from repro_torch.workloads.synthetic import SyntheticWorkload
 
@@ -62,6 +73,91 @@ def _states(step, n=150):
             for sc, ac in STEPS[step]]
 
 
+def _deep_workload(n, seed=11, mean_interarrival_s=4.0,
+                   node_weights=None):
+    """Arrivals far faster than the 10 nodes drain them: the queue grows
+    past a thousand rows at 1,500 jobs."""
+    return SyntheticWorkload(
+        n, seed=seed, mean_interarrival_s=mean_interarrival_s,
+        duration_median_s=900.0, duration_sigma=1.1,
+        node_weights=node_weights or {1: 0.5, 2: 0.3, 4: 0.2},
+        resources={"core": (1, 4), "mem": (64, 1024)})
+
+
+def deep_states(n=1500):
+    """EBF-FF and EBF-BF on the deep queue."""
+    return [FleetRunner.build(f"deep-{ac}", _deep_workload(n), SYS,
+                              SCHED_EBF, alloc_id=ac,
+                              job_factory=JobFactory()).state
+            for ac in (ALLOC_FF, ALLOC_BF)]
+
+
+def deep_failure_states(n=600):
+    """The deep queue under a failure schedule (checkpoint credit, a
+    quarantine): victims are re-ranked behind hundreds of queued rows."""
+    inj = FailureInjector(N_NODES, mtbf_s=3000.0, repair_s=600.0,
+                          horizon_s=3000, seed=5)
+    return [FleetRunner.build(f"deepfail-{sc}-{ac}", _deep_workload(n), SYS,
+                              sc, alloc_id=ac, job_factory=JobFactory(),
+                              failures=inj, quarantine_s=300,
+                              ckpt_every_s=600).state
+            for sc, ac in ((SCHED_EBF, ALLOC_BF), (SCHED_SJF, ALLOC_FF))]
+
+
+def snapshot_states(tmp_dir, n=800, events=300):
+    """Host simulators of the deep workload cut after ``events`` events,
+    exported mid-run: rows already running and queued (the host's queue
+    in rank order, running rows without a rank) when the kernel starts."""
+    out = []
+    for sched, sc, ac in ((EasyBackfilling(BestFit()), SCHED_EBF, ALLOC_BF),
+                          (ShortestJobFirst(FirstFit()), SCHED_SJF,
+                           ALLOC_FF)):
+        sim = Simulator(_deep_workload(n), SYS, sched, job_factory=JobFactory(),
+                        lookahead_jobs=n + 1, output_dir=str(tmp_dir),
+                        name="cut")
+        sim.start_simulation(max_events=events, write_output=False)
+        state, _ = SimState.from_event_manager(sim.event_manager,
+                                               sched_id=sc, alloc_id=ac)
+        out.append(state)
+    return out
+
+
+def snapshot_failure_states(tmp_dir, n=200, events=60):
+    """Host simulators of the deep workload under a failure schedule, cut
+    after ``events`` events and exported mid-run: a FAIL evicts running
+    rows that carry no rank, so the reference's re-rank leaves rankless
+    victims queued (its priority puts them first, its backfill's argmin
+    over their INF ranks picks row 0)."""
+    out = []
+    for sched, sc, ac in ((EasyBackfilling(BestFit()), SCHED_EBF, ALLOC_BF),
+                          (ShortestJobFirst(FirstFit()), SCHED_SJF,
+                           ALLOC_FF)):
+        inj = FailureInjector(N_NODES, mtbf_s=3000.0, repair_s=600.0,
+                              horizon_s=3000, seed=5)
+        sim = Simulator(_deep_workload(n), SYS, sched, job_factory=JobFactory(),
+                        lookahead_jobs=n + 1, output_dir=str(tmp_dir),
+                        name="cut", failures=inj, quarantine_s=300)
+        sim.start_simulation(max_events=events, write_output=False)
+        state, _ = SimState.from_event_manager(sim.event_manager,
+                                               sched_id=sc, alloc_id=ac)
+        out.append(state)
+    return out
+
+
+WIDE_SYS = {"groups": {"w": {"core": 4, "mem": 1024}}, "nodes": {"w": 600}}
+
+
+def wide_states(n=400):
+    """600 nodes, more than the block's 512 threads, with jobs of up to
+    128 nodes: every node loop takes two trips."""
+    wl = _deep_workload(n, seed=13, mean_interarrival_s=20.0,
+                        node_weights={1: 0.3, 16: 0.3, 64: 0.2, 128: 0.2})
+    return [FleetRunner.build(f"wide-{sc}-{ac}", wl, WIDE_SYS, sc,
+                              alloc_id=ac, job_factory=JobFactory()).state
+            for sc, ac in ((SCHED_EBF, ALLOC_BF), (SCHED_EBF, ALLOC_FF),
+                           (SCHED_LJF, ALLOC_BF))]
+
+
 def assert_states_equal(got: SimState, want: SimState, what=""):
     bad = [k for k in SimState._fields
            if not np.array_equal(np.asarray(getattr(got, k)),
@@ -89,6 +185,52 @@ def test_fleet_kernel_matches_plain(cuda_dev, step, use_kernel):
             np.asarray(x, dtype=np.int32)) for x in s)), use_kernel)
         assert_states_equal(g, SimState(*(x.numpy() for x in want)), step)
         assert int(g.n_completed) + int(g.n_rejected) == 150
+
+
+def _equal_to_plain(states, dev, use_kernel, what):
+    counters.reset_device_launches()
+    got = unstack(advance(stack(states, dev), use_kernel))
+    assert counters.device_launch_stats() == {"fleet_engine": 1}
+    for s, g in zip(states, got):
+        want = advance_plain(SimState(*(torch.from_numpy(
+            np.asarray(x, dtype=np.int32)) for x in s)), use_kernel)
+        assert_states_equal(g, SimState(*(x.numpy() for x in want)), what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_fleet_kernel_deep_queue(cuda_dev, use_kernel):
+    states = deep_states()
+    _equal_to_plain(states, cuda_dev, use_kernel, "deep queue")
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_deep_queue_under_failures(cuda_dev):
+    _equal_to_plain(deep_failure_states(), cuda_dev, False,
+                    "deep queue, failures")
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_midsim_snapshot(cuda_dev, tmp_path):
+    states = snapshot_states(tmp_path)
+    for s in states:
+        assert (s.state == RUNNING).any() and (s.state == QUEUED).sum() > 100
+    _equal_to_plain(states, cuda_dev, False, "snapshot")
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_midsim_snapshot_under_failures(cuda_dev, tmp_path):
+    states = snapshot_failure_states(tmp_path)
+    for s in states:
+        running = np.asarray(s.state) == RUNNING
+        assert running.any() and int(s.n_fail) > 0
+        assert (np.asarray(s.fifo_rank)[running] >= INF_I).all()
+    _equal_to_plain(states, cuda_dev, False, "snapshot, failures")
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_more_nodes_than_threads(cuda_dev):
+    _equal_to_plain(wide_states(), cuda_dev, True, "600 nodes")
 
 
 @pytest.mark.cuda
