@@ -70,7 +70,7 @@ def main() -> int:
     build.library("fleet_engine")
     seth = [sim for seed in range(cs.FLEET_SEEDS)
             for sim in cs.policy_sims(FleetRunner.build(
-                "seth", cs.seth_jobs(Job, cs.SETH_JOBS, seed), cs.SETH,
+                "seth", cs.seth_jobs(cs.SETH_JOBS, seed), cs.SETH,
                 SCHED_FIFO, seed=seed), seed, f"-s{seed}")]
     ricc = cs.policy_sims(FleetRunner.build(
         "ricc", cs.ricc_jobs(Job, cs.RICC_JOBS), cs.RICC, SCHED_FIFO))

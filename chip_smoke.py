@@ -65,14 +65,34 @@ and drives the simulator's main path on the card:
    failure schedule with telemetry, and padded lanes (whole final state
    equal); its time and the plain version's on the card, and its device
    time from the profiler over 4 launches after a warm-up, in a fresh
-   process.
+   process;
+12. the Experiment layer, the paper's Table-2 study:
+   ``benchmarks_torch/table2_dispatchers.run`` on the card (Seth, 8,000
+   jobs, the 8 policies all on the fleet: 2 ``fleet_engine`` launches;
+   plots only where matplotlib is installed), every row's job records
+   and summary counters equal to the same dispatcher's through
+   ``Experiment(use_fleet=False)`` on the host; then the reference
+   example's three vectorized rows (FIFO-vFF, FIFO-vBF, vEBF-vFF) through
+   an ``Experiment`` on the card, each output byte-equal to its numpy
+   twin's;
+13. a policy study: ``Experiment`` over the 8 policies x 16 repeats of a
+   10,000-job ``SyntheticWorkload`` on Seth, one ``run_simulation`` (128
+   sims, 2 ``fleet_engine`` launches): every row's invariants, engine
+   and seed, FIFO-FF r0 and EBF-BF r0 equal to host twins; the wall
+   split into planning and ``FleetRunner.build``, ``FleetRunner.run``,
+   ``FleetResult.write_outputs`` and ``summaries.json``, and the device
+   busy share of the whole ``run_simulation`` (profiler).  The host
+   twins of phases 12-13 run in worker processes meanwhile.  Then the
+   environment stamp of ``benchmarks_torch.common.bench_metadata``.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
 kernels on phases 2-3, ``selective_scan`` on phase 5, ``fleet_engine``
-on phases 8-10; each path's counts are set to 0 just before it and read
-just after).  The last two lines
+on phases 8-10 and on each of 12 and 13, ``alloc_score_batch`` and
+``ebf_shadow`` on phase 12's vectorized rows; each path's counts are set
+to 0 just before it and read just after; the kernel table's launches add
+up every path).  The last two lines
 are the kernel table and ``{"ok": true, "device": ...}``; any failure
 exits non-zero before them.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -80,6 +100,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import multiprocessing
 import os
@@ -95,7 +116,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(1, ROOT)
 
+from benchmarks_torch import table2_dispatchers  # noqa: E402
+from benchmarks_torch.common import (SETH, bench_metadata,  # noqa: E402
+                                     seth_jobs)
 from repro_torch.cluster import FailureInjector  # noqa: E402
 from repro_torch.cluster.failures import CheckpointRestartPolicy  # noqa: E402
 from repro_torch.core import Job, Simulator  # noqa: E402
@@ -118,6 +143,8 @@ from repro_torch.fleet import (ALLOC_BF, ALLOC_FF, ALLOC_NAMES,  # noqa: E402
                                stack, unstack)
 from repro_torch.fleet.state import (COMPLETED, REJECTED,  # noqa: E402
                                      UNSET_I)
+from repro_torch.experimentation import Experiment  # noqa: E402
+from repro_torch.fleet.runner import FleetResult  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
                                  greedy_generate, make_prefill_step)
@@ -130,7 +157,6 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
-SETH = {"groups": {"seth": {"core": 4, "mem": 1024}}, "nodes": {"seth": 120}}
 RICC = {"groups": {"ricc": {"core": 8, "mem": 12288}},
         "nodes": {"ricc": 1024}}
 SETH_JOBS = 10_000
@@ -176,6 +202,13 @@ GOLDEN_WL = dict(mean_interarrival_s=25.0, duration_median_s=900.0,
                  resources={"core": (1, 4), "mem": (64, 1024)})
 FAIL_MTBF_S, FAIL_REPAIR_S, FAIL_SEED = 1_500_000.0, 7200.0, 7
 QUARANTINE_S, CKPT_EVERY_S, TELE_STRIDE = 3600, 1800, 50
+# the Experiment phases: the Table-2 study (benchmarks_torch's own size
+# and seed) and a policy study of a synthetic workload on Seth
+TABLE2_JOBS, TABLE2_SEED = 8_000, 2
+STUDY_JOBS, STUDY_SEED, STUDY_REPEATS = 10_000, 100, 16
+STUDY_WL = dict(mean_interarrival_s=45.0, duration_median_s=1300.0,
+                duration_sigma=1.5, resources={"core": (1, 4),
+                                               "mem": (128, 1024)})
 # numpy twins of phases 2-3, kept for the fleet phases:
 # (phase, dispatcher) -> (Recorder, summary, wall seconds)
 TWINS = {}
@@ -188,29 +221,6 @@ def log(obj) -> None:
 # ----------------------------------------------------------------------
 # workloads
 # ----------------------------------------------------------------------
-def seth_jobs(job_cls, n, seed=0):
-    """Poisson arrivals with a daily cycle; Seth-plausible job mix (the
-    generator of the reference's ``benchmarks/common.py``)."""
-    rng = random.Random(seed)
-    t = 0
-    for i in range(n):
-        hour = (t // 3600) % 24
-        rate = 55.0 if 8 <= hour <= 18 else 240.0
-        t += int(rng.expovariate(1.0 / rate)) + 1
-        procs = rng.choice([1, 1, 1, 1, 2, 2, 4, 4, 8, 16, 32])
-        nodes = max(1, procs // 4)
-        dur = int(rng.lognormvariate(7.2, 1.5)) + 1
-        dur = min(dur, 3 * 86400)
-        yield job_cls(
-            id=str(i), user_id=rng.randint(1, 50), submission_time=t,
-            duration=dur,
-            expected_duration=min(int(dur * rng.uniform(1.0, 4.0)) + 60,
-                                  4 * 86400),
-            requested_nodes=nodes,
-            requested_resources={"core": min(procs, 4),
-                                 "mem": rng.choice([128, 256, 512, 1024])})
-
-
 def ricc_jobs(job_cls, n, seed=1):
     """``n`` jobs submitted in per-minute batches over the first hour,
     1-32 nodes each, 10 min to 4 h, asking per core for half or all of a
@@ -1045,7 +1055,7 @@ def fleet_seth_grid(dev):
     """Phase 8: 8 policies x 16 seeds of Seth in one FleetRunner.run,
     then each of its two launches timed alone."""
     t0 = time.perf_counter()
-    bases = [FleetRunner.build("seth", seth_jobs(Job, SETH_JOBS, seed), SETH,
+    bases = [FleetRunner.build("seth", seth_jobs(SETH_JOBS, seed), SETH,
                                SCHED_FIFO, seed=seed)
              for seed in range(FLEET_SEEDS)]
     sims = [sim for seed, b in enumerate(bases)
@@ -1111,7 +1121,7 @@ def make_sched(tag):
 
 def seth_failures():
     """Seth seed 0's FAIL/REPAIR schedule, over its submission span."""
-    horizon = max(j.submission_time for j in seth_jobs(Job, SETH_JOBS))
+    horizon = max(j.submission_time for j in seth_jobs(SETH_JOBS))
     return horizon, FailureInjector(
         SETH["nodes"]["seth"], mtbf_s=FAIL_MTBF_S, repair_s=FAIL_REPAIR_S,
         horizon_s=horizon, seed=FAIL_SEED)
@@ -1128,7 +1138,7 @@ def twin_job(system, tag, max_events=None, failures=False):
         kw = dict(failures=seth_failures()[1],
                   checkpoint=CheckpointRestartPolicy(CKPT_EVERY_S),
                   quarantine_s=QUARANTINE_S, telemetry_stride=TELE_STRIDE)
-        jobs = seth_jobs(Job, SETH_JOBS)
+        jobs = seth_jobs(SETH_JOBS)
     with tempfile.TemporaryDirectory() as td:
         sim = Simulator(jobs, system, rec, output_dir=td, name="twin", **kw)
         t0 = time.perf_counter()
@@ -1201,7 +1211,7 @@ def fleet_failures(twins):
     TwinRun)."""
     horizon, inj = seth_failures()
     tags = [("FIFO-FF", SCHED_FIFO, ALLOC_FF), ("EBF-BF", SCHED_EBF, ALLOC_BF)]
-    sims = [FleetRunner.build(tag, seth_jobs(Job, SETH_JOBS), SETH, sc,
+    sims = [FleetRunner.build(tag, seth_jobs(SETH_JOBS), SETH, sc,
                               alloc_id=ac, failures=inj,
                               quarantine_s=QUARANTINE_S,
                               ckpt_every_s=CKPT_EVERY_S,
@@ -1385,6 +1395,270 @@ def fleet(dev):
             "bound_by": b_by, "library_ms": None}
 
 
+# ----------------------------------------------------------------------
+# the Experiment layer: the paper's Table-2 study and a policy study
+# ----------------------------------------------------------------------
+def study_workload():
+    """The policy study's workload: SyntheticWorkload on the Seth system,
+    its repeats reseeded base..base+15 by the Experiment."""
+    return SyntheticWorkload(STUDY_JOBS, seed=STUDY_SEED, **STUDY_WL)
+
+
+def host_twin(root, name, workload, tag):
+    """One dispatcher through ``Experiment(use_fleet=False)`` (worker
+    process, host only): (summary, output path, wall s)."""
+    torch.set_num_threads(1)
+    exp = Experiment(name, workload, SETH, output_dir=os.path.join(root, tag),
+                     use_fleet=False)
+    exp.add_dispatcher(make_sched(tag))
+    t0 = time.perf_counter()
+    res = exp.run_simulation(produce_plots=False)[tag]
+    return res["summaries"][0], res["output"], time.perf_counter() - t0
+
+
+def table2_twin(root, tag):
+    return host_twin(root, "table2", list(seth_jobs(TABLE2_JOBS,
+                                                    TABLE2_SEED)), tag)
+
+
+def study_twin(root, tag):
+    return host_twin(root, "study", study_workload(), tag)
+
+
+def job_records(path):
+    """A ``-output.jsonl`` as {job id: record} (the host writes records in
+    completion order, the fleet in row order)."""
+    with open(path, "rb") as fh:
+        recs = [json.loads(line) for line in fh]
+    out = {r["id"]: r for r in recs}
+    if len(out) != len(recs):
+        raise AssertionError(f"{path}: a job id appears twice")
+    return out
+
+
+def check_against_host(summ, out_path, twin, label):
+    """A row's job records and summary counters against a host twin's."""
+    t_summ, t_out, _ = twin
+    if job_records(out_path) != job_records(t_out):
+        raise AssertionError(f"{label}: job records differ from the host")
+    for k in ("events", "submitted", "completed", "rejected",
+              "sim_end_time"):
+        if summ[k] != t_summ[k]:
+            raise AssertionError(f"{label}: summary {k} {summ[k]} != "
+                                 f"{t_summ[k]}")
+
+
+class FleetSplit:
+    """Inside ``patched()``: times each ``FleetRunner.run`` and
+    ``FleetResult.write_outputs`` that an ``Experiment`` makes, and keeps
+    the ``FleetResult`` for the invariant checks.  It wraps the two
+    methods; the Experiment's code is the port's own."""
+
+    def __init__(self) -> None:
+        self.results, self.run_s, self.write_s = [], 0.0, 0.0
+        self.run_start = self.write_end = None
+
+    @contextlib.contextmanager
+    def patched(self):
+        run, write = FleetRunner.run, FleetResult.write_outputs
+
+        def timed_run(runner, sims, *args, **kw):
+            t0 = time.perf_counter()
+            self.run_start = self.run_start or t0
+            res = run(runner, sims, *args, **kw)
+            self.run_s += time.perf_counter() - t0
+            self.results.append(res)
+            return res
+
+        def timed_write(res, output_dir, i):
+            t0 = time.perf_counter()
+            paths = write(res, output_dir, i)
+            self.write_end = time.perf_counter()
+            self.write_s += self.write_end - t0
+            return paths
+
+        FleetRunner.run, FleetResult.write_outputs = timed_run, timed_write
+        try:
+            yield self
+        finally:
+            FleetRunner.run, FleetResult.write_outputs = run, write
+
+
+def experiment_table2(dev, td, twins, produce_plots):
+    """Phase 12: ``benchmarks_torch/table2_dispatchers.run`` on the card
+    (8,000 Seth jobs, the 8 policies on the fleet: 2 launches), each row
+    against the same dispatcher through ``Experiment(use_fleet=False)``
+    (``twins``: tag -> pending host twin); then the reference example's
+    three vectorized rows through an ``Experiment`` on the card, each
+    against its numpy twin.  Returns the CUDA launches of both runs."""
+    split = FleetSplit()
+    counters.reset_device_launches()
+    t0 = time.perf_counter()
+    with split.patched():
+        rows = table2_dispatchers.run(out_dir=td, n_jobs=TABLE2_JOBS,
+                                      device=dev, produce_plots=produce_plots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.device_launch_stats()
+    if launches != {"fleet_engine": 2}:
+        raise AssertionError(f"table2: CUDA launches {launches}, not 2 of "
+                             f"fleet_engine")
+    (res,) = split.results
+    for i in range(len(res)):
+        check_invariants(res, i)
+    with open(os.path.join(td, "table2", "summaries.json")) as fh:
+        summaries = json.load(fh)
+    tags = [tag_of(sc, ac) for sc, ac in POLICIES]
+    if list(summaries) != tags:
+        raise AssertionError(f"table2: rows {list(summaries)}")
+    host = {}
+    for tag in tags:
+        (summ,) = summaries[tag]
+        if summ["engine"] != "fleet":
+            raise AssertionError(f"table2 {tag}: engine {summ['engine']}")
+        host[tag] = twins[tag].get()
+        check_against_host(summ, os.path.join(
+            td, "table2", f"{tag}-output.jsonl"), host[tag], f"table2 {tag}")
+    log({"phase": "experiment_table2", "jobs": TABLE2_JOBS, "wall_s": wall,
+         "plots": produce_plots, "launches": res.launches,
+         "fleet_run_s": split.run_s, "write_outputs_s": split.write_s,
+         "rows": rows, "host_wall_s": {t: h[2] for t, h in host.items()},
+         "equal_to_host": True, "invariants": True,
+         "cuda_launches": launches})
+
+    # the reference example's vectorized rows, on the card
+    exp = Experiment("table2_vectorized", list(seth_jobs(TABLE2_JOBS,
+                                                         TABLE2_SEED)),
+                     SETH, output_dir=td, device=dev)
+    alloc = lambda pol: VectorizedAllocator(pol, device=dev)
+    exp.add_dispatcher(FirstInFirstOut(alloc("FF")))
+    exp.add_dispatcher(FirstInFirstOut(alloc("BF")))
+    exp.add_dispatcher(VectorizedEasyBackfilling(alloc("FF")))
+    counters.reset_device_launches()
+    t0 = time.perf_counter()
+    res = exp.run_simulation(produce_plots=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    vx_launches = counters.device_launch_stats()
+    for k in ("alloc_score_batch", "ebf_shadow"):
+        if not vx_launches.get(k):
+            raise AssertionError(f"table2 vectorized rows: no CUDA launch "
+                                 f"of {k}")
+    vx_rows = {}
+    for tag, twin in (("FIFO-vFF", "FIFO-FF"), ("FIFO-vBF", "FIFO-BF"),
+                      ("vEBF-vFF", "EBF-FF")):
+        (summ,) = res[tag]["summaries"]
+        if (summ["engine"], summ["fallback_reason"]) != (
+                "host", "non-compilable-dispatcher"):
+            raise AssertionError(f"table2 {tag}: {summ['engine']}, "
+                                 f"{summ['fallback_reason']}")
+        check_against_host(summ, res[tag]["output"], host[twin],
+                           f"table2 {tag}")
+        with open(res[tag]["output"], "rb") as a, \
+                open(host[twin][1], "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"table2 {tag}: output not byte-equal "
+                                     f"to {twin}'s")
+        vx_rows[tag] = {"twin": twin, "events": summ["events"],
+                        "events_per_s": summ["events"] / summ["wall_time_s"],
+                        "launches_per_event":
+                            summ["kernel_launches_per_event"],
+                        "twin_events_per_s": summ["events"] / host[twin][2]}
+    log({"phase": "experiment_table2", "vectorized_rows": vx_rows,
+         "wall_s": wall, "equal_to_numpy_twins": True,
+         "cuda_launches": vx_launches})
+    return {k: launches.get(k, 0) + vx_launches.get(k, 0)
+            for k in set(launches) | set(vx_launches)}
+
+
+def experiment_study(dev, td, twins):
+    """Phase 13: ``Experiment`` over the 8 policies x 16 repeats of a
+    10,000-job SyntheticWorkload on Seth, one ``run_simulation`` on the
+    card (128 sims, 2 ``fleet_engine`` launches), under the profiler for
+    its device busy share; every row's invariants, its engine and seed,
+    and FIFO-FF r0 and EBF-BF r0 against host twins (``twins``)."""
+    exp = Experiment("study", study_workload(), SETH, output_dir=td,
+                     repeats=STUDY_REPEATS, device=dev)
+    exp.gen_dispatchers([FirstInFirstOut, ShortestJobFirst, LongestJobFirst,
+                         EasyBackfilling], [FirstFit, BestFit])
+    split = FleetSplit()
+    counters.reset_device_launches()
+    with split.patched(), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = exp.run_simulation(produce_plots=False)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    launches = counters.device_launch_stats()
+    if launches != {"fleet_engine": 2}:
+        raise AssertionError(f"study: CUDA launches {launches}, not 2 of "
+                             f"fleet_engine")
+    ours, total = (x * 1e-6 for x in device_time_us(prof))
+    if not ours > 0:
+        raise AssertionError("study: the profiler recorded no kernel")
+    (fres,) = split.results
+    if len(fres) != len(POLICIES) * STUDY_REPEATS:
+        raise AssertionError(f"study: {len(fres)} sims")
+    for i in range(len(fres)):
+        check_invariants(fres, i)
+    seeds = list(range(STUDY_SEED, STUDY_SEED + STUDY_REPEATS))
+    for tag, entry in res.items():
+        summ = entry["summaries"]
+        if {s["engine"] for s in summ} != {"fleet"} or [
+                s["seed"] for s in summ] != seeds:
+            raise AssertionError(f"study {tag}: engines or seeds differ")
+    host = {}
+    for tag, twin in twins.items():
+        host[tag] = twin.get()
+        check_against_host(res[tag]["summaries"][0], os.path.join(
+            td, "study", f"{tag}-r0-output.jsonl"), host[tag],
+            f"study {tag}-r0")
+    wall = t_end - t0
+    events = sum(s["events"] for e in res.values() for s in e["summaries"])
+    f0 = fres.finals[0]
+    b_ms, b_by = bound("fleet_engine", (batch_bytes(fres.finals),))
+    log({"phase": "experiment_study", "sims": len(fres),
+         "shape": [len(fres), f0.n_rows, f0.n_nodes, f0.avail.shape[1]],
+         "bound_ms": b_ms, "bound_by": b_by,
+         "jobs_per_sim": STUDY_JOBS, "workload": STUDY_WL, "seeds":
+         [seeds[0], seeds[-1]], "events": events, "wall_s": wall,
+         "plan_and_build_s": split.run_start - t0, "run_s": split.run_s,
+         "write_outputs_s": split.write_s,
+         "summaries_json_s": t_end - split.write_end,
+         "launches": fres.launches, "kernel_device_s": ours,
+         "device_busy_share": total / wall, "events_per_s": events / wall,
+         "host_twins": {t: {"events": h[0]["events"], "wall_s": h[2]}
+                        for t, h in host.items()},
+         "equal_to_host_twins": True, "invariants": True,
+         "cuda_launches": launches})
+    return launches
+
+
+def experiment(dev):
+    """Phases 12-13; returns their CUDA launches.  The host twins go to
+    worker processes first and run while the card runs the study."""
+    produce_plots = importlib.util.find_spec("matplotlib") is not None
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            multiprocessing.get_context("spawn").Pool(workers) as pool:
+        t2 = {tag: pool.apply_async(table2_twin, (os.path.join(td, "host"),
+                                                  tag))
+              for tag in (tag_of(sc, ac) for sc, ac in POLICIES)}
+        st = {tag: pool.apply_async(study_twin, (os.path.join(td, "host"),
+                                                 tag))
+              for tag in ("FIFO-FF", "EBF-BF")}
+        table2_launches = experiment_table2(dev, os.path.join(td, "card"),
+                                            t2, produce_plots)
+        study_launches = experiment_study(dev, os.path.join(td, "card"), st)
+        pool.close()
+        pool.join()
+    log({"phase": "experiment", "workers": workers,
+         "total_s": time.perf_counter() - t0})
+    return {k: table2_launches.get(k, 0) + study_launches.get(k, 0)
+            for k in set(table2_launches) | set(study_launches)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1426,7 +1700,7 @@ def run(dev) -> int:
     numpy_alloc = {"FF": FirstFit, "BF": BestFit}
     simple = {"FIFO": FirstInFirstOut, "SJF": ShortestJobFirst,
               "LJF": LongestJobFirst}
-    seth = lambda job: seth_jobs(job, SETH_JOBS)
+    seth = lambda job: seth_jobs(SETH_JOBS)
     ricc = lambda job: ricc_jobs(job, RICC_JOBS)
 
     counters.reset_device_launches()
@@ -1572,6 +1846,12 @@ def run(dev) -> int:
 
     # ---- 8.-11. the fleet engine -------------------------------------
     table.append(fleet(dev))
+
+    # ---- 12.-13. the Experiment layer ---------------------------------
+    exp_launches = experiment(dev)
+    for row in table:
+        row["launches"] += exp_launches.get(row["name"], 0)
+    log({"phase": "bench_metadata", **bench_metadata()})
 
     log({"phase": "done", "total_s": time.perf_counter() - t_start})
     log(smi)

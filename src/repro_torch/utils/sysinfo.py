@@ -9,10 +9,15 @@ import os
 import time
 
 
+# the kernel's per-process status file (a module constant so that tests
+# can point it at a file of their own)
+STATUS_PATH = "/proc/self/status"
+
+
 def rss_mb() -> float:
     """Resident set size of this process in MB (VmRSS)."""
     try:
-        with open("/proc/self/status") as fh:
+        with open(STATUS_PATH) as fh:
             for line in fh:
                 if line.startswith("VmRSS:"):
                     return float(line.split()[1]) / 1024.0
@@ -22,17 +27,25 @@ def rss_mb() -> float:
 
 
 def peak_rss_mb() -> float:
-    """Peak resident set size of this process in MB (VmHWM — the
+    """Peak resident set size of this process in MB: VmHWM (the
     kernel's high-water mark, so it never misses a spike between
-    samples the way polling ``rss_mb`` can)."""
+    samples the way polling ``rss_mb`` can), or, where the status file
+    has no such line, ``getrusage``'s ``ru_maxrss`` (KB on Linux).
+    Raises where neither gives a reading."""
     try:
-        with open("/proc/self/status") as fh:
+        with open(STATUS_PATH) as fh:
             for line in fh:
                 if line.startswith("VmHWM:"):
                     return float(line.split()[1]) / 1024.0
     except OSError:
         pass
-    return 0.0
+    import resource
+
+    kb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    if kb <= 0:
+        raise RuntimeError(f"no peak resident set size: {STATUS_PATH} has "
+                           f"no VmHWM line and getrusage gives {kb}")
+    return kb / 1024.0
 
 
 def cpu_time_s() -> float:

@@ -1,7 +1,8 @@
 """The port stands alone and never hides the device.
 
-* Import hygiene: no module of ``src/repro_torch`` and not
-  ``chip_smoke.py`` imports ``jax`` or the reference package ``repro``
+* Import hygiene: no module of ``src/repro_torch``, ``examples_torch``
+  or ``benchmarks_torch`` and not ``chip_smoke.py`` imports ``jax``,
+  the reference package ``repro`` or the reference's ``benchmarks``
   (checked on the source with ``ast``, then on ``sys.modules`` after
   importing every port module in a fresh interpreter).
 * No fallback: without a GPU, the default device of a vectorized
@@ -20,7 +21,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _port_modules():
@@ -41,6 +42,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         sorted((ROOT / "examples_torch").glob("*.py")) +
+                         sorted((ROOT / "benchmarks_torch").glob("*.py")) +
                          [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_neither_jax_nor_reference(path):
