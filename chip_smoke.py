@@ -82,15 +82,26 @@ and drives the simulator's main path on the card:
    split into planning and ``FleetRunner.build``, ``FleetRunner.run``,
    ``FleetResult.write_outputs`` and ``summaries.json``, and the device
    busy share of the whole ``run_simulation`` (profiler).  The host
-   twins of phases 12-13 run in worker processes meanwhile.  Then the
-   environment stamp of ``benchmarks_torch.common.bench_metadata``.
+   twins of phases 12-13 run in worker processes meanwhile;
+14. the benchmark modes through their entry points, on the card, each
+   with its own refusal (``REPO_ROOT`` in a temporary directory):
+   ``bench_dispatch.run(quick=True)`` (the three engines agree on
+   ``sim_end_time``), ``bench_fleet``, ``bench_failures`` and
+   ``bench_profile`` at ``quick`` (per-sim equality with the host, the
+   crosscheck under failures, telemetry within its 15 % budget) and
+   ``bench_kernels.run()``; one line per mode with its wall and headline
+   numbers; then ``bench_kernels``' inputs at N 16384 through
+   ``alloc_score`` and ``ebf_shadow`` against their plain versions, with
+   their times and bounds.  Then the environment stamp of
+   ``benchmarks_torch.common.bench_metadata``.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
 kernels on phases 2-3, ``selective_scan`` on phase 5, ``fleet_engine``
 on phases 8-10 and on each of 12 and 13, ``alloc_score_batch`` and
-``ebf_shadow`` on phase 12's vectorized rows; each path's counts are set
+``ebf_shadow`` on phase 12's vectorized rows, the four kernels but the
+scan on phase 14; each path's counts are set
 to 0 just before it and read just after; the kernel table's launches add
 up every path).  The last two lines
 are the kernel table and ``{"ok": true, "device": ...}``; any failure
@@ -118,7 +129,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(1, ROOT)
 
-from benchmarks_torch import table2_dispatchers  # noqa: E402
+from benchmarks_torch import (bench_dispatch, bench_failures,  # noqa: E402
+                              bench_fleet, bench_kernels, bench_profile,
+                              table2_dispatchers)
 from benchmarks_torch.common import (SETH, bench_metadata,  # noqa: E402
                                      seth_jobs)
 from repro_torch.cluster import FailureInjector  # noqa: E402
@@ -511,6 +524,12 @@ def kernel_rows(name, fn, plain, phase_inputs, extra, launches, shapes_of,
             "replaces": replaces, "launches": sum(launches.values()),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def alloc_one_plain(a, c, q):
+    """``alloc_score``'s plain version for one request ``q [R]``."""
+    bits, score = ref.alloc_score_packed_ref(a, c, q.view(1, -1))
+    return bits[0], score
 
 
 def to_dev(x, dev):
@@ -1659,6 +1678,91 @@ def experiment(dev):
             for k in set(table2_launches) | set(study_launches)}
 
 
+# ----------------------------------------------------------------------
+# 14. the benchmark modes
+# ----------------------------------------------------------------------
+BENCH_KERNELS = {"alloc_score", "alloc_score_batch", "ebf_shadow",
+                 "fleet_engine"}
+
+
+def bench_modes(dev):
+    """Phase 14; returns its CUDA launches.  Each mode runs through its
+    ``run`` on the card and refuses by itself (an ``AssertionError`` or
+    ``SystemExit`` ends the smoke); then ``bench_kernels``' widest inputs
+    go through the two dispatch kernels against their plain versions,
+    outside the counted run."""
+    modes = (
+        ("dispatch", lambda out: bench_dispatch.run(out, quick=True),
+         lambda r: {"headline": r["headline"], "device": r["mode"],
+                    "speedup_batched_vs_per_job":
+                        r["speedup_batched_vs_per_job"],
+                    "events_per_s": {c["engine"]: c["events_per_s"]
+                                     for c in r["cells"]}}),
+        ("fleet", lambda out: bench_fleet.run(out, quick=True),
+         lambda r: {"n_sims": r["n_sims"], "host": r["host"],
+                    "fleet": {k: v for k, v in r["fleet"].items()
+                              if k != "launches"},
+                    "launches": r["fleet"]["launches"],
+                    "speedup": r["speedup_aggregate_events_per_s"]}),
+        ("failures", lambda out: bench_failures.run(out, quick=True),
+         lambda r: {"scale_cell": r["scale_cell"],
+                    "crosscheck_host": r["crosscheck"]["host"],
+                    "crosscheck_fleet": r["crosscheck"]["fleet"]}),
+        ("profile", lambda out: bench_profile.run(out, quick=True),
+         lambda r: {k: r[k] for k in ("n_sims", "events", "telemetry_off",
+                                      "telemetry_on", "overhead_fraction",
+                                      "overhead_ok")}),
+        ("kernels", lambda out: bench_kernels.run(out),
+         lambda r: r),
+    )
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        for mod in (bench_dispatch, bench_fleet, bench_failures,
+                    bench_profile):
+            mod.REPO_ROOT = td
+        out = os.path.join(td, "bench")
+        counters.reset_device_launches()
+        per_mode, before = {}, {}
+        for name, call, head in modes:
+            t0 = time.perf_counter()
+            result = call(out)
+            wall = time.perf_counter() - t0
+            now = counters.device_launch_stats()
+            per_mode[name] = {k: v - before.get(k, 0) for k, v in now.items()
+                              if v > before.get(k, 0)}
+            before = now
+            log({"phase": "bench_modes", "mode": name, "wall_s": wall,
+                 "cuda_launches": per_mode[name], **head(result)})
+        launches = counters.device_launch_stats()
+    log({"phase": "bench_modes", "cuda_launches": launches,
+         "total_s": time.perf_counter() - t_all})
+    missing = BENCH_KERNELS - set(launches)
+    if missing:
+        raise AssertionError(f"bench modes: no CUDA launch of "
+                             f"{sorted(missing)}")
+
+    # bench_kernels' widest inputs, drawn as its run draws them
+    rng = np.random.default_rng(0)
+    for n_nodes in bench_kernels.SIZES:
+        avail, cap, req, deltas = bench_kernels.draw(rng, n_nodes)
+    sparse = bench_kernels.sparse_deltas(deltas)
+    sizes = len(bench_kernels.SIZES)       # each size launches as many
+    per_size = {k: v // sizes for k, v in per_mode["kernels"].items()}
+    kernel_rows(
+        "alloc_score", k_alloc.alloc_score, alloc_one_plain,
+        {"bench_kernels": tuple(to_dev(x, dev) for x in (avail, cap, req))},
+        [], {"bench_kernels": per_size["alloc_score"]},
+        lambda a: (1,) + tuple(a[0].shape))
+    kernel_rows(
+        "ebf_shadow", k_ebf.ebf_shadow, ref.ebf_shadow_sparse_ref,
+        {"bench_kernels": (to_dev(avail, dev),)
+         + tuple(to_dev(x, dev) for x in sparse)
+         + (to_dev(req, dev), bench_kernels.M)},
+        [], {"bench_kernels": per_size["ebf_shadow"]},
+        lambda a: (a[5],) + tuple(a[0].shape) + (a[2].shape[0],))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1801,9 +1905,6 @@ def run(dev) -> int:
         lambda a: (a[2].shape[0],) + tuple(a[0].shape)))
 
     # alloc_score: (avail, capacity, req [R]) -> (bits [W], score [N])
-    def alloc_one_plain(a, c, q):
-        bits, score = ref.alloc_score_packed_ref(a, c, q.view(1, -1))
-        return bits[0], score
     extra = []
     for n in (1, 31, 33, 1000):
         a, c, q = floored_system(rng, n, 2, 1)
@@ -1851,6 +1952,11 @@ def run(dev) -> int:
     exp_launches = experiment(dev)
     for row in table:
         row["launches"] += exp_launches.get(row["name"], 0)
+
+    # ---- 14. the benchmark modes -------------------------------------
+    bench_launches = bench_modes(dev)
+    for row in table:
+        row["launches"] += bench_launches.get(row["name"], 0)
     log({"phase": "bench_metadata", **bench_metadata()})
 
     log({"phase": "done", "total_s": time.perf_counter() - t_start})
