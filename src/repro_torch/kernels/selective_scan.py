@@ -21,6 +21,9 @@ from . import build, counters, ref
 
 #: largest SSM state size the kernel keeps in registers
 MAX_S = 16
+#: largest batch of one launch (the grid's y extent); the wrapper loops
+#: over batch chunks of at most this many rows (rows are independent)
+MAX_BT = 65535
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 #: element types the kernel reads natively -> code across the ABI
@@ -33,10 +36,11 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
     ``u, delta [Bt, L, Di]``, ``A [Di, S]``, ``B, C [Bt, L, S]``,
     ``D [Di]``, any float type (computed in float32), any ``L >= 1`` and
-    ``Di >= 1``.  A CUDA tensor launches the kernel (``S <= MAX_S``) or
-    raises: ``u``, ``delta``, ``B`` and ``C`` are read as they are when
-    they share one type, else all four are cast to float32; ``A`` and
-    ``D`` are cast to float32.  A CPU tensor runs the plain version.
+    ``Di >= 1``.  A CUDA tensor launches the kernel (``S <= MAX_S``; one
+    launch per chunk of at most ``MAX_BT`` batch rows) or raises:
+    ``u``, ``delta``, ``B`` and ``C`` are read as they are when they
+    share one type, else all four are cast to float32; ``A`` and ``D``
+    are cast to float32.  A CPU tensor runs the plain version.
     """
     dev = u.device
     for t, name, ndim in ((u, "u", 3), (delta, "delta", 3), (A, "A", 2),
@@ -57,9 +61,13 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         return ref.selective_scan_ref(u, delta, A, B, C, D)
     if s > MAX_S:
         raise ValueError(f"selective_scan kernel takes S <= {MAX_S}, got {s}")
-    if bt > 65535:
-        raise ValueError(f"selective_scan kernel takes Bt <= 65535, got {bt}")
-    return _ScanWithPlainGrad.apply(u, delta, A, B, C, D)
+    if bt <= MAX_BT:
+        return _ScanWithPlainGrad.apply(u, delta, A, B, C, D)
+    parts = [_ScanWithPlainGrad.apply(u[i:i + MAX_BT], delta[i:i + MAX_BT],
+                                      A, B[i:i + MAX_BT], C[i:i + MAX_BT], D)
+             for i in range(0, bt, MAX_BT)]
+    return (torch.cat([y for y, _ in parts]),
+            torch.cat([h for _, h in parts]))
 
 
 class _ScanWithPlainGrad(torch.autograd.Function):

@@ -5,13 +5,15 @@
     init_params(seed)              -> params (a ``transformer.Transformer``)
     params_from_reference(tree)    -> params carried over from the JAX
                                       reference's parameter tree
-    apply(params, batch, mode, cache=None)  -> (logits, new_cache)
-    init_cache(batch)
+    param_shapes()                 -> the parameter tree as meta tensors
+    apply(params, batch, mode, cache=None, remat="full")
+                                   -> (logits, new_cache)
+    init_cache(batch, max_seq=None)
 
 ``params`` plays the part of the reference's parameter pytree: an
-``nn.Module`` that holds the weights on the model's device.  So far the
-port runs the ssm family (falcon-mamba-7b); other families raise
-``NotImplementedError`` (ROADMAP queue 1 item 7).
+``nn.Module`` that holds the weights on the model's device, trainable.
+The port runs the dense and ssm families; other families raise
+``NotImplementedError`` (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
 from . import transformer
-from .params import init_from_specs, params_from_reference
+from .params import init_from_specs, params_from_reference, shapes_from_specs
 
 
 @dataclass
@@ -53,20 +55,27 @@ class Model:
             tree, transformer.param_specs(cfg), cfg.scan_period,
             self.dtype, self.device))
 
+    def param_shapes(self) -> Dict:
+        """The parameter tree as meta tensors (no allocation)."""
+        return shapes_from_specs(transformer.param_specs(self.cfg),
+                                 self.dtype)
+
     # ------------------------------------------------------------ apply
     def apply(self, params: transformer.Transformer, batch: Dict, *,
-              mode: str = "train", cache: Optional[Dict] = None):
+              mode: str = "train", cache: Optional[Dict] = None,
+              remat: str = "full"):
         if set(batch) != {"tokens"}:
             raise NotImplementedError(
                 f"inputs {sorted(batch)}: the port takes tokens only "
-                "(ROADMAP queue 1 item 7)")
-        return params(batch["tokens"], cache=cache, mode=mode)
+                "(ROADMAP queue 1 item 4)")
+        return params(batch["tokens"], cache=cache, mode=mode, remat=remat)
 
     # ------------------------------------------------------------ cache
-    def init_cache(self, batch: int) -> Dict:
-        """An empty decode cache (Mamba caches do not grow with the
-        sequence, so there is no ``max_seq``)."""
-        return transformer.init_cache(self.cfg, batch, self.dtype,
+    def init_cache(self, batch: int, max_seq: Optional[int] = None) -> Dict:
+        """An empty decode cache.  ``max_seq`` (the KV rows) is required
+        only when the model has attention layers: a Mamba cache does not
+        grow with the sequence."""
+        return transformer.init_cache(self.cfg, batch, max_seq, self.dtype,
                                       self.device)
 
 

@@ -59,6 +59,22 @@ def init_from_specs(specs: Dict, generator: torch.Generator,
     return map_specs(leaf, specs)
 
 
+def shapes_from_specs(specs: Dict, dtype: torch.dtype) -> Dict:
+    """The parameter tree as meta tensors (shapes and types, no
+    storage)."""
+    return map_specs(lambda path, spec: torch.empty(
+        spec[0], dtype=_leaf_dtype(path[-1], dtype), device="meta"), specs)
+
+
+def count_params(shapes) -> int:
+    """Elements in a tree (dicts, lists, tensors) of parameters."""
+    if isinstance(shapes, dict):
+        return sum(count_params(v) for v in shapes.values())
+    if isinstance(shapes, list):
+        return sum(count_params(v) for v in shapes)
+    return shapes.numel()
+
+
 def params_from_reference(tree: Mapping[str, Any], specs: Dict,
                           period: int, dtype: torch.dtype,
                           device) -> Dict:

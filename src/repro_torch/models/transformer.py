@@ -1,64 +1,92 @@
-"""Decoder-only LM; the port so far covers the attention-free ssm family
-(a stack of Mamba-1 blocks, e.g. falcon-mamba-7b).
+"""Decoder-only LM; the port covers the dense family (attention + dense
+FFN, GQA/MQA, optional qk-norm) and the attention-free ssm family (a
+stack of Mamba-1 blocks).
 
 Where the reference stacks layers per scan period and iterates them with
-``lax.scan``, the port holds one :class:`MambaBlock` per layer in an
+``lax.scan``, the port holds one :class:`Block` per layer in an
 ``nn.ModuleList`` and loops over them in Python; the reference's
-``shard`` annotations and remat policies have no counterpart without a
-mesh.  Three modes share one code path:
+``shard`` annotations have no counterpart without a mesh.  Its remat
+policies map to ``torch.utils.checkpoint`` per layer.  Three modes share
+one code path:
 
   train    — full-sequence causal forward, no cache;
-  prefill  — train-like forward that also emits the SSM cache;
-  decode   — single-token step against that cache.
+  prefill  — train-like forward that also emits a KV/SSM cache;
+  decode   — single-token step against a fixed-size cache.
 
-Configurations with attention or MoE layers (the dense, moe, vlm,
-hybrid and audio families) raise ``NotImplementedError``: they are
-ROADMAP queue 1 item 7.
+The MoE, hybrid, vlm and audio families raise ``NotImplementedError``:
+they are ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
-from .layers import rms_norm
+from .layers import attention, mlp, rms_norm, rope
 from .mamba import MambaCache, mamba_mixer
 
 MODES = ("train", "prefill", "decode")
+REMATS = ("full", "dots", "none")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is a Mamba block with no FFN."""
+    """Raise unless every layer of ``cfg`` is attention with a dense FFN
+    (dense family) or a Mamba block with no FFN (ssm family)."""
     kinds = {(cfg.layer_kind(i), cfg.ffn_kind(i))
              for i in range(cfg.n_layers)}
-    if cfg.family == "audio" or cfg.vision_patches or kinds != {
-            ("mamba", "none")}:
+    want = {"dense": {("attn", "dense")}, "ssm": {("mamba", "none")}}
+    if cfg.vision_patches or cfg.encoder_layers or kinds != want.get(
+            cfg.family):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the ssm family only; "
-            "attention, MoE, vision and audio layers are ROADMAP queue 1 "
-            "item 7")
+            f"{cfg.name} ({cfg.family}): the port runs the dense and ssm "
+            "families; MoE, hybrid, vision and audio models are ROADMAP "
+            "queue 1 item 4")
 
 
 # ----------------------------------------------------------------------
 # Parameter specification: leaf name -> (shape, logical axes, fan_in axis)
 # ----------------------------------------------------------------------
 
-def _mamba_specs(cfg: ModelConfig) -> Dict[str, Tuple]:
-    d, di, s, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dtr
-    return {
-        "ln1": ((d,), ("embed_act",), None),
-        "in_proj": ((d, 2 * di), ("embed", "inner"), 0),
-        "conv_w": ((di, cfg.conv_width), ("inner", None), None),
-        "conv_b": ((di,), ("inner",), None),
-        "x_proj": ((di, dtr + 2 * s), ("inner", None), 0),
-        "dt_proj_w": ((dtr, di), (None, "inner"), 0),
-        "dt_proj_b": ((di,), ("inner",), None),
-        "A_log": ((di, s), ("inner", "state"), None),
-        "D": ((di,), ("inner",), None),
-        "out_proj": ((di, d), ("inner", "embed"), 0),
-    }
+def _sublayer_specs(cfg: ModelConfig, i: int) -> Dict[str, Tuple]:
+    d, hd, h, kvh = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    specs: Dict[str, Tuple] = {"ln1": ((d,), ("embed_act",), None)}
+    if cfg.layer_kind(i) == "attn":
+        specs.update({
+            "wq": ((d, h * hd), ("embed", "heads"), 0),
+            "wk": ((d, kvh * hd), ("embed", "kv_heads"), 0),
+            "wv": ((d, kvh * hd), ("embed", "kv_heads"), 0),
+            "wo": ((h * hd, d), ("heads", "embed"), 0),
+        })
+        if cfg.qk_norm:
+            specs["q_norm"] = ((hd,), (None,), None)
+            specs["k_norm"] = ((hd,), (None,), None)
+    else:
+        di, s, dtr = cfg.d_inner, cfg.ssm_state, cfg.dtr
+        specs.update({
+            "in_proj": ((d, 2 * di), ("embed", "inner"), 0),
+            "conv_w": ((di, cfg.conv_width), ("inner", None), None),
+            "conv_b": ((di,), ("inner",), None),
+            "x_proj": ((di, dtr + 2 * s), ("inner", None), 0),
+            "dt_proj_w": ((dtr, di), (None, "inner"), 0),
+            "dt_proj_b": ((di,), ("inner",), None),
+            "A_log": ((di, s), ("inner", "state"), None),
+            "D": ((di,), ("inner",), None),
+            "out_proj": ((di, d), ("inner", "embed"), 0),
+        })
+    if cfg.ffn_kind(i) == "dense":
+        f = cfg.d_ff
+        specs.update({
+            "ln2": ((d,), ("embed_act",), None),
+            "w_in": ((d, f), ("embed", "mlp"), 0),
+            "w_out": ((f, d), ("mlp", "embed"), 0),
+        })
+        if cfg.gated_ffn:
+            specs["w_gate"] = ((d, f), ("embed", "mlp"), 0)
+    return specs
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
@@ -71,7 +99,7 @@ def param_specs(cfg: ModelConfig) -> Dict:
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ((d, v), ("embed", "vocab"), 0)
-    tree["blocks"] = [_mamba_specs(cfg) for _ in range(cfg.n_layers)]
+    tree["blocks"] = [_sublayer_specs(cfg, i) for i in range(cfg.n_layers)]
     return tree
 
 
@@ -79,16 +107,53 @@ def param_specs(cfg: ModelConfig) -> Dict:
 # Cache
 # ----------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
-               device) -> Dict:
-    """Per-layer cache; ``index`` is the fill pointer.  A Mamba layer's
-    cache does not grow with the sequence."""
-    blocks = [{
-        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                           dtype=torch.float32, device=device),
-    } for _ in range(cfg.n_layers)]
+def _quantize_kv(x: torch.Tensor):
+    """int8 symmetric quantization over head_dim: x [..., hd] ->
+    (int8[..., hd], f32 scale[..., 1]); rounds half to even."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(scale, min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int],
+               dtype: torch.dtype, device) -> Dict:
+    """Per-layer cache; ``index`` is the fill pointer.  Attention layers
+    hold ``max_seq`` KV rows (required when there are any); a Mamba
+    layer's cache does not grow with the sequence."""
+    blocks: List[Dict] = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "attn":
+            if max_seq is None:
+                raise ValueError(f"{cfg.name}: an attention cache needs "
+                                 "max_seq")
+            shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+            if cfg.kv_cache_dtype == "int8":
+                blocks.append({
+                    "k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(shape[:-1] + (1,),
+                                           dtype=torch.float32,
+                                           device=device),
+                    "v_scale": torch.zeros(shape[:-1] + (1,),
+                                           dtype=torch.float32,
+                                           device=device)})
+            else:
+                blocks.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=device),
+                    "v": torch.zeros(shape, dtype=dtype, device=device)})
+        else:
+            blocks.append({
+                "conv": torch.zeros((batch, cfg.conv_width - 1,
+                                     cfg.d_inner), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                                   dtype=torch.float32, device=device)})
     return {"blocks": blocks,
             "index": torch.zeros((batch,), dtype=torch.int32,
                                  device=device)}
@@ -98,23 +163,101 @@ def init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 # Forward
 # ----------------------------------------------------------------------
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # serving only: no autograd graph (the scan kernel has no backward yet)
-    return nn.Parameter(t, requires_grad=False)
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-class MambaBlock(nn.Module):
-    """One residual Mamba sublayer: ``h + mixer(rms_norm(h))``."""
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products with no
+    batch dimension (the reference's ``dots_with_no_batch_dims_saveable``;
+    attention's batched products are recomputed), recompute the rest."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
-    def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor]
-                 ) -> None:
+
+class Block(nn.Module):
+    """One layer: ``h + mixer(rms_norm(h))`` with an attention or Mamba
+    mixer, then ``h + mlp(rms_norm(h))`` where the layer has a dense
+    FFN.  Parameters keep the reference's leaf names and layouts."""
+
+    def __init__(self, cfg: ModelConfig, i: int,
+                 params: Dict[str, torch.Tensor]) -> None:
         super().__init__()
         self.cfg = cfg
+        self.attn = cfg.layer_kind(i) == "attn"
+        self.ffn = cfg.ffn_kind(i) == "dense"
         for name, t in params.items():
-            self.register_parameter(name, _frozen(t))
+            self.register_parameter(name, nn.Parameter(t))
 
-    def forward(self, h: torch.Tensor, cache_in: Optional[Dict], mode: str
+    def forward(self, h: torch.Tensor, cache_in: Optional[Dict],
+                positions: torch.Tensor, mode: str
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        if self.attn:
+            h, nc = self._attention(h, cache_in, positions, mode)
+        else:
+            h, nc = self._mamba(h, cache_in, mode)
+        if self.ffn:
+            x = rms_norm(h, self.ln2, self.cfg.norm_eps)
+            h = h + mlp(x, self.w_in, getattr(self, "w_gate", None),
+                        self.w_out, self.cfg.gated_ffn)
+        return h, nc
+
+    def _attention(self, h, cache_in, positions, mode):
+        """Decode writes the new token's K/V into ``cache_in`` in place
+        at ``index`` (the reference donates the cache) and attends over
+        all ``max_seq`` rows under the position mask."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        hd, nh, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        x = rms_norm(h, self.ln1, cfg.norm_eps)
+        q = (x @ self.wq).reshape(b, s, nh, hd)
+        k = (x @ self.wk).reshape(b, s, kvh, hd)
+        v = (x @ self.wv).reshape(b, s, kvh, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q, self.q_norm, cfg.norm_eps)
+            k = rms_norm(k, self.k_norm, cfg.norm_eps)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+        new_cache = None
+        quant = cfg.kv_cache_dtype == "int8"
+        if mode == "decode":
+            kc, vc = cache_in["k"], cache_in["v"]
+            rows = torch.arange(b, device=h.device)
+            idx = positions[:, 0].long()
+            if quant:
+                kq, ks = _quantize_kv(k[:, 0])
+                vq, vs = _quantize_kv(v[:, 0])
+                kc[rows, idx] = kq
+                vc[rows, idx] = vq
+                kscale, vscale = cache_in["k_scale"], cache_in["v_scale"]
+                kscale[rows, idx] = ks
+                vscale[rows, idx] = vs
+                k_full = _dequantize_kv(kc, kscale, k.dtype)
+                v_full = _dequantize_kv(vc, vscale, v.dtype)
+                new_cache = {"k": kc, "v": vc, "k_scale": kscale,
+                             "v_scale": vscale}
+            else:
+                kc[rows, idx] = k[:, 0]
+                vc[rows, idx] = v[:, 0]
+                k_full, v_full = kc, vc
+                new_cache = {"k": kc, "v": vc}
+            kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
+                                  device=h.device).expand(b, kc.shape[1])
+            out = attention(q, k_full, v_full, positions, kv_pos)
+        else:
+            out = attention(q, k, v, positions, positions)
+            if mode == "prefill":
+                if quant:
+                    kq, ks = _quantize_kv(k)
+                    vq, vs = _quantize_kv(v)
+                    new_cache = {"k": kq, "v": vq, "k_scale": ks,
+                                 "v_scale": vs}
+                else:
+                    new_cache = {"k": k, "v": v}
+        out = out.reshape(b, s, nh * hd) @ self.wo
+        return h + out, new_cache
+
+    def _mamba(self, h, cache_in, mode):
         cfg = self.cfg
         x = rms_norm(h, self.ln1, cfg.norm_eps)
         cache = None
@@ -138,28 +281,44 @@ class Transformer(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.embed = _frozen(params["embed"])
-        self.final_norm = _frozen(params["final_norm"])
-        self.lm_head = _frozen(params["lm_head"]) \
+        self.embed = nn.Parameter(params["embed"])
+        self.final_norm = nn.Parameter(params["final_norm"])
+        self.lm_head = nn.Parameter(params["lm_head"]) \
             if "lm_head" in params else None
-        self.blocks = nn.ModuleList(MambaBlock(cfg, p)
-                                    for p in params["blocks"])
+        self.blocks = nn.ModuleList(Block(cfg, i, p)
+                                    for i, p in enumerate(params["blocks"]))
 
     def forward(self, tokens: torch.Tensor, *, cache: Optional[Dict] = None,
-                mode: str = "train") -> Tuple[torch.Tensor, Optional[Dict]]:
-        """tokens int[B, S] -> (logits [B, S, V], new_cache or None)."""
+                mode: str = "train", remat: str = "full"
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+        """tokens int[B, S] -> (logits [B, S, V], new_cache or None).
+
+        ``remat`` applies where autograd records: ``"full"`` recomputes
+        each layer in the backward pass, ``"dots"`` keeps its matrix
+        products and recomputes the rest, ``"none"`` keeps everything."""
         if mode not in MODES:
             raise ValueError(f"mode {mode!r}, expected one of {MODES}")
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r}, expected one of {REMATS}")
         if mode == "decode" and cache is None:
             raise ValueError("decode needs a cache")
         cfg = self.cfg
         b, s = tokens.shape
         h = self.embed[tokens]
+        if mode == "decode":
+            positions = cache["index"][:, None]
+        else:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=tokens.device).expand(b, s)
         caches_in: List = cache["blocks"] if mode == "decode" \
             else [None] * len(self.blocks)
+        run = _remat(remat) if torch.is_grad_enabled() else None
         caches_out = []
         for block, cin in zip(self.blocks, caches_in):
-            h, nc = block(h, cin, mode)
+            if run is None:
+                h, nc = block(h, cin, positions, mode)
+            else:
+                h, nc = run(block, h, cin, positions, mode)
             caches_out.append(nc)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         logits = h @ (self.embed.t() if self.lm_head is None
@@ -173,3 +332,14 @@ class Transformer(nn.Module):
         elif mode == "decode":
             new_cache = {"blocks": caches_out, "index": cache["index"] + 1}
         return logits, new_cache
+
+
+def _remat(remat: str):
+    """The per-layer call for ``remat`` (None: call the layer as it is)."""
+    if remat == "none":
+        return None
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+    return functools.partial(ckpt.checkpoint, use_reentrant=False, **kw)

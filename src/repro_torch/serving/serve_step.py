@@ -1,16 +1,23 @@
 """Serving steps: prefill (prompt -> cache + first logits) and decode
-(one token against the cache), and greedy generation on top of them.
+(one token against a fixed-size cache), and greedy generation on top of
+them.  Each runs under ``torch.no_grad()``: the parameters are
+trainable, and serving keeps no autograd state.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..models import Model
 
+#: the cache leaves that hold one row per position (attention's KV cache)
+KV_LEAVES = ("k", "v", "k_scale", "v_scale")
+
 
 def make_prefill_step(model: Model) -> Callable:
+    @torch.no_grad()
     def prefill(params, batch) -> Tuple[torch.Tensor, Dict]:
         logits, cache = model.apply(params, batch, mode="prefill")
         return logits[:, -1, :], cache
@@ -19,6 +26,7 @@ def make_prefill_step(model: Model) -> Callable:
 
 def make_decode_step(model: Model) -> Callable:
     """One greedy decode step: (next token int32[B, 1], cache)."""
+    @torch.no_grad()
     def decode(params, tokens, cache) -> Tuple[torch.Tensor, Dict]:
         logits, cache = model.apply(params, {"tokens": tokens},
                                     mode="decode", cache=cache)
@@ -27,16 +35,33 @@ def make_decode_step(model: Model) -> Callable:
     return decode
 
 
-def greedy_generate(model: Model, params, batch,
-                    max_new_tokens: int) -> torch.Tensor:
+def pad_kv(cache: Dict, max_seq: int) -> Dict:
+    """The cache with its KV leaves padded with zeros to ``max_seq`` rows;
+    Mamba leaves (``conv``, ``ssm``) do not grow and stay as they are."""
+    def pad(name, leaf):
+        if name not in KV_LEAVES:
+            return leaf
+        return F.pad(leaf, (0, 0, 0, 0, 0, max_seq - leaf.shape[1]))
+    return {"blocks": [{k: pad(k, v) for k, v in blk.items()}
+                       for blk in cache["blocks"]],
+            "index": cache["index"]}
+
+
+def greedy_generate(model: Model, params, batch, max_new_tokens: int,
+                    max_seq: Optional[int] = None) -> torch.Tensor:
     """Prefill + greedy decode loop: int32[B, max_new_tokens].
 
-    One prefill gives both the cache and the first token (the reference
-    runs it twice; the results are equal).  The cache is not padded: a
-    Mamba cache does not grow with the sequence, whatever the prompt
-    length.
+    The KV cache is padded to ``max_seq`` (default: prompt length +
+    ``max_new_tokens``), so every decode step has the same shapes.  Only
+    the KV leaves are padded: the reference's shape test also pads a
+    Mamba ``conv`` cache whenever the prompt has ``conv_width - 1``
+    tokens.  One prefill gives both the cache and the first token (the
+    reference runs it twice; the results are equal).
     """
+    sp = batch["tokens"].shape[1]
+    max_seq = max_seq or (sp + max_new_tokens)
     first_logits, cache = make_prefill_step(model)(params, batch)
+    cache = pad_kv(cache, max_seq)
     tok = torch.argmax(first_logits, dim=-1).to(torch.int32)[:, None]
     decode = make_decode_step(model)
     out = [tok]

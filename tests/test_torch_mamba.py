@@ -57,12 +57,15 @@ def _tokens(b, s, vocab, seed=0):
 
 
 def _close(got, want):
+    if isinstance(got, torch.Tensor):
+        got = got.detach()
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
 
 
 def _stack_cache(cache):
     """The port's per-layer cache in the reference's stacked layout."""
-    return {k: torch.stack([blk[k] for blk in cache["blocks"]]).numpy()
+    return {k: torch.stack([blk[k] for blk in cache["blocks"]]).detach()
+            .numpy()
             for k in ("conv", "ssm")}
 
 
@@ -212,11 +215,12 @@ def test_params_from_reference_uses_every_leaf_exactly_once(ref):
     n_ref = sum(a.size for a in (tree["embed"], tree["final_norm"]))
     n_ref += sum(a.size for a in tree["blocks"]["L0"].values())
     assert sum(p.numel() for p in got.values()) == n_ref
-    np.testing.assert_array_equal(got["embed"].numpy(), tree["embed"])
+    np.testing.assert_array_equal(got["embed"].detach().numpy(),
+                                  tree["embed"])
     for name, arr in tree["blocks"]["L0"].items():
         for i in range(arr.shape[0]):
-            np.testing.assert_array_equal(got[f"blocks.{i}.{name}"].numpy(),
-                                          arr[i])
+            np.testing.assert_array_equal(
+                got[f"blocks.{i}.{name}"].detach().numpy(), arr[i])
 
     extra = dict(tree, lm_head=tree["embed"].T)
     with pytest.raises(ValueError, match="not used: lm_head"):
@@ -249,7 +253,7 @@ def test_init_params_follows_reference_rules():
     assert torch.all(p1[blk + "dt_proj_b"] == 0)
     std = p1[blk + "in_proj"].float().std().item()
     assert abs(std * cfg.d_model ** 0.5 - 1) < 0.1
-    assert not any(p.requires_grad for p in p1.values())
+    assert all(p.requires_grad for p in p1.values())
 
 
 # ---------------------------------------------------------------- no fallback
@@ -265,7 +269,7 @@ def test_without_gpu_the_model_raises():
         ops.resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "jamba-1.5-large-398b",
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
                                   "whisper-medium", "internvl2-76b"])
 def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
