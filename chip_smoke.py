@@ -54,6 +54,29 @@ and drives the simulator's main path on the card:
    cut to 4 layers in float32 (TF32 off): a 64-token prefill and 8
    decode steps match the train-mode forward's logits within 5e-4, and
    smollm's int8 KV cache within the reference's 0.15 relative error;
+   then the qwen3-moe, llama4-maverick and Jamba smoke configs in
+   float32 with ``capacity_factor`` 16 (no drops), within 5e-4;
+5c. qwen3-moe-30b-a3b at full size (48 layers, 128 experts top-8,
+   bf16, ~61 GB of random weights drawn leaf by leaf after the earlier
+   phases' memory is freed) serves phase 5b's traffic through
+   ``launch/serve.py``'s loop (8 requests of 512 and 1024 tokens, 4
+   slots, 32 new tokens, ``max_seq`` 1056); each request equals
+   generation of its prompt alone at the loop's batch, and the decode
+   steps drop no slot (capacity 4 holds the 4 rows of a step, which is
+   what keeps the rows independent); routing group and capacity at
+   prefill and decode, slots dropped per prefill, tokens/s and peak
+   memory;
+5d. llama4-maverick-400b-a17b at full width, one period (a dense layer,
+   then a MoE layer of 128 experts top-1 with its shared expert; ~37
+   GB): 4 requests of 512 tokens, 16 new tokens each, the same checks;
+5e. Jamba-1.5-large at full width (d_model 8192), one period of 8
+   layers (attention at layer 4, Mamba elsewhere, 16 experts top-2 on
+   the odd layers), the experts' width cut from 24576 to 3072 (~23 GB):
+   4 requests of 512 and 1024 tokens, the same checks, and exactly 7
+   ``selective_scan`` launches a prefill; then (6b, after phase 15a,
+   whose fresh process reads its device time) the scan kernel against
+   its plain version on the largest inputs those prefills gave it (Bt 1
+   x L 1024 x Di 16384 x S 16, bf16), with its times and bound;
 8. the fleet engine (``fleet_engine``, one thread block per sim): the
    Seth grid, the 8 Table-2 policies x 16 seeds of the Seth stream (128
    sims of 10,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
@@ -116,10 +139,16 @@ and drives the simulator's main path on the card:
    share of a step (timed) and the scan kernel's (profiler); the scan
    against its plain version at the training shape;
 16. training consistency: falcon-mamba-7b and smollm-360m at full width
-   cut to 2 layers, float32, TF32 off: one step (batch 2 x 64, 2
+   cut to 2 layers, and the qwen3-moe (2 layers) and Jamba (8 layers)
+   smoke configs, float32, TF32 off: one step (batch 2 x 64, 2
    micro-batches) on the card against the port on the CPU from the same
    parameters and data: loss within 1e-4, grads within 1e-3 of each
-   leaf's max |g|, parameters within 1e-4.
+   leaf's max |g|, parameters within 1e-4; the MoE tokens whose top-k
+   sets agree between the two sides are counted;
+15c. (after 16) qwen3-moe-30b-a3b at full width cut to 4 layers (~3.1B
+   parameters), bf16, 10 steps of the copy task at batch 8 x 512 with
+   ``remat="full"``: finite losses that fall, step time, tokens/s and
+   peak memory beside the memory reckoned before the run.
 
 Phases 15-16 run right after phase 7: once the fleet phases have run,
 the profiler records none of this process's kernels (phase 11 profiles
@@ -128,7 +157,7 @@ in a fresh process for that reason).
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
-kernels on phases 2-3, ``selective_scan`` on phases 5 and 15,
+kernels on phases 2-3, ``selective_scan`` on phases 5, 5e and 15,
 ``fleet_engine`` on phases 8-10 and on each of 12 and 13,
 ``alloc_score_batch`` and ``ebf_shadow`` on phase 12's vectorized rows,
 the four kernels but the scan on phase 14; each path's counts are set
@@ -142,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import importlib.util
 import json
 import multiprocessing
@@ -191,7 +221,8 @@ from repro_torch.experimentation import Experiment  # noqa: E402
 from repro_torch.fleet.runner import FleetResult  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.launch.serve import serve_requests  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, moe  # noqa: E402
+from repro_torch.models import params as model_params  # noqa: E402
 from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
                                  greedy_generate, make_decode_step,
                                  make_prefill_step)
@@ -222,10 +253,10 @@ SERVE_NEW_TOKENS = 32
 CHECK_LAYERS = 4                # depth of the float32 consistency model
 CHECK_PROMPT, CHECK_STEPS = 64, 8
 DENSE_ARCH = "smollm-360m"
-# one batch of SERVE_SLOTS requests each; a 1000-token prompt would be
-# refused by the attention's 512-query chunking
-DENSE_PROMPTS = (512, 1024)
-DENSE_MAX_SEQ = max(DENSE_PROMPTS) + SERVE_NEW_TOKENS
+# the serve loop's traffic (phases 5b, 5c): SERVE_SLOTS requests of 512
+# tokens, then as many of 1024; a 1000-token prompt would be refused by
+# the attention's 512-query chunking
+SERVE_TRAFFIC = (512,) * SERVE_SLOTS + (1024,) * SERVE_SLOTS
 # training: smollm-360m at full size in a child process; falcon-mamba-7b
 # at full width, cut in depth, with (remat, micro-batches) runs
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, RESTART_AT = 30, 8, 512, 25
@@ -234,6 +265,20 @@ MAMBA_TRAIN_LAYERS = 8
 MAMBA_TRAIN_BT, MAMBA_TRAIN_L = 2, 512
 MAMBA_TRAIN_RUNS = (("full", 1), ("none", 2))
 MAMBA_TRAIN_STEPS = {"full": 3, "none": 1}
+# the moe and hybrid families at full width: qwen3-moe at full size with
+# phase 5b's traffic; llama4-maverick cut to one period (a dense layer,
+# then a MoE layer with its shared expert: 37 GB); Jamba cut to one
+# period of 8 layers with the experts' width cut from 24576 to 3072, so
+# that it fits one card (23 GB; the full period takes ~84 GB)
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MAVERICK_ARCH = "llama4-maverick-400b-a17b"
+MAVERICK_CUTS = {"n_layers": 2}
+MAVERICK_PROMPTS, MAVERICK_NEW_TOKENS = (512,) * SERVE_SLOTS, 16
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_CUTS = {"n_layers": 8, "moe_d_ff": 3072}
+JAMBA_PROMPTS, JAMBA_NEW_TOKENS = (512, 512, 1024, 1024), 16
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 10
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 512
 
 # kernel -> (CUDA source, TPU kernel it replaces, path that launches it)
 KERNELS = {
@@ -933,17 +978,26 @@ def check_consistency(dev):
     """Phase 7: prefill + decode against teacher forcing, in float32 at
     full width, cut to CHECK_LAYERS layers: falcon-mamba-7b, then
     smollm-360m with its KV cache in float32 (within 5e-4) and in int8
-    (within the reference's 0.15 relative error, ``test_models.py``)."""
+    (within the reference's 0.15 relative error, ``test_models.py``);
+    then the smoke configs of qwen3-moe, llama4-maverick and Jamba with
+    ``capacity_factor`` 16, so that no token drops (the reference's
+    ``test_prefill_decode_matches_teacher_forcing``), within 5e-4."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for arch, kv in ((MAMBA_ARCH, ""), (DENSE_ARCH, ""), (DENSE_ARCH, "int8")):
-        consistency_of(dev, arch, kv)
+        consistency_of(dev, get_config(arch).replace(
+            n_layers=CHECK_LAYERS, dtype="float32", kv_cache_dtype=kv),
+            f"n_layers {CHECK_LAYERS} of {get_config(arch).n_layers}, "
+            f"float32")
+    for arch in (MOE_ARCH, MAVERICK_ARCH, JAMBA_ARCH):
+        consistency_of(dev, get_config(arch, smoke=True).replace(
+            dtype="float32", capacity_factor=16.0),
+            "the smoke config, float32, capacity_factor 16")
 
 
 @torch.no_grad()
-def consistency_of(dev, arch, kv):
-    cfg = get_config(arch).replace(n_layers=CHECK_LAYERS, dtype="float32",
-                                   kv_cache_dtype=kv)
+def consistency_of(dev, cfg, cut):
+    kv = cfg.kv_cache_dtype
     model = build_model(cfg, dev)
     params = model.init_params(seed=1)
     rng = np.random.default_rng(3)
@@ -964,9 +1018,8 @@ def consistency_of(dev, arch, kv):
         ok = ok and (kv == "int8" or torch.allclose(
             logits[:, 0], full[:, t], atol=5e-4, rtol=5e-4))
     rel = max(errs) / float(full.std())
-    log({"phase": "consistency", "arch": cfg.name,
-         "cut": f"n_layers {CHECK_LAYERS} of {get_config(arch).n_layers}, "
-                f"float32", "kv_cache_dtype": kv or cfg.dtype,
+    log({"phase": "consistency", "arch": cfg.name, "cut": cut,
+         "kv_cache_dtype": kv or cfg.dtype,
          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
          "prompt": CHECK_PROMPT, "decode_steps": CHECK_STEPS,
@@ -981,97 +1034,6 @@ def consistency_of(dev, arch, kv):
 # ----------------------------------------------------------------------
 # the dense family: serving and training
 # ----------------------------------------------------------------------
-def serve_dense(dev):
-    """Phase 5b: smollm-360m at full width and depth (bf16, random)
-    serves 8 requests through ``launch/serve.py``'s loop with 4 slots:
-    prompts of 512 and 1024 tokens (1000 is refused by the attention's
-    512-query chunking), 32 new tokens each.  Each request's tokens must
-    equal greedy generation of its prompt alone at the loop's batch
-    (``generate_in_slots``); how many also equal ``greedy_generate`` at
-    batch 1 is logged."""
-    cfg = get_config(DENSE_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    model = build_model(cfg, dev)
-    t0 = time.perf_counter()
-    params = model.init_params(seed=0)
-    torch.cuda.synchronize()
-    kv_bytes = (2 * cfg.n_layers * SERVE_SLOTS * DENSE_MAX_SEQ
-                * cfg.n_kv_heads * cfg.hd * 2)
-    log({"phase": "dense_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
-         "head_dim": cfg.hd, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-         "params": sum(p.numel() for p in params.parameters()),
-         "weights_gb": sum(p.numel() * p.element_size()
-                           for p in params.parameters()) / 1e9,
-         "max_seq": DENSE_MAX_SEQ, "kv_cache_gb": kv_bytes / 1e9,
-         "init_s": time.perf_counter() - t0})
-    rng = np.random.default_rng(5)
-
-    def batcher():
-        rb = RequestBatcher(SERVE_SLOTS)
-        for length in DENSE_PROMPTS:
-            for i in range(SERVE_SLOTS):
-                rb.submit(Request(
-                    id=f"{length}-{i}", max_new_tokens=SERVE_NEW_TOKENS,
-                    prompt=rng.integers(0, cfg.vocab_size, length).tolist()))
-        return rb
-
-    warm = RequestBatcher(SERVE_SLOTS)          # cuBLAS and the allocator
-    warm.submit(Request(id="warm", prompt=[1] * 8, max_new_tokens=2))
-    serve_requests(model, params, warm, DENSE_MAX_SEQ)
-
-    rb = batcher()
-    timer = ApplyTap(model, timed=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n_tok, steps = serve_requests(model, params, rb, DENSE_MAX_SEQ)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    timer.close("dense_serve")
-    done = rb.completed
-    if len(done) != 2 * SERVE_SLOTS or n_tok != len(done) * \
-            SERVE_NEW_TOKENS or any(len(r.generated) != SERVE_NEW_TOKENS
-                                    for r in done):
-        raise AssertionError("dense_serve: not every request was served")
-    prompt_tokens = sum(len(r.prompt) for r in done)
-    decode_tokens = n_tok - len(done)       # first tokens come from prefill
-    log({"phase": "dense_serve", "requests": len(done), "wall_s": wall,
-         "generated_tokens": n_tok, "decode_steps": steps,
-         "prefills": timer.calls["prefill"],
-         "prefill_s": timer.secs["prefill"],
-         "prefill_tokens_per_s": prompt_tokens / timer.secs["prefill"],
-         "decode_s": timer.secs["decode"],
-         "decode_tokens_per_s": decode_tokens / timer.secs["decode"],
-         "tokens_per_s": n_tok / wall,
-         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if timer.calls["prefill"] != len(done):
-        raise AssertionError("dense_serve: not one prefill per request")
-    # Each request against greedy generation of its prompt alone at the
-    # serve loop's shapes: prefilled alone, decoded in a batch of
-    # SERVE_SLOTS copies of itself, so its decode products have the
-    # loop's row count (bf16 products at 1 and 4 rows round apart).
-    # Then, logged, against ``greedy_generate`` at batch 1.
-    differ, batch1 = [], {}
-    for r in done:
-        prompt = torch.tensor(r.prompt, dtype=torch.int32, device=dev)
-        if generate_in_slots(model, params, prompt, SERVE_NEW_TOKENS,
-                             SERVE_SLOTS, DENSE_MAX_SEQ) != r.generated:
-            differ.append(r.id)
-        alone = greedy_generate(model, params, {"tokens": prompt[None]},
-                                SERVE_NEW_TOKENS, max_seq=DENSE_MAX_SEQ)
-        batch1[r.id] = next((k for k, (a, b) in enumerate(zip(
-            alone[0].tolist(), r.generated)) if a != b), None)
-    log({"phase": "dense_serve", "check": "each request's tokens equal "
-         "greedy generation of its prompt alone at the loop's batch",
-         "differ": differ, "batch1_equal": sum(
-             v is None for v in batch1.values()),
-         "batch1_first_difference": {k: v for k, v in batch1.items()
-                                     if v is not None}})
-    if differ:
-        raise AssertionError(f"dense_serve: requests {differ} differ from "
-                             f"greedy generation of their prompts alone")
-
-
 @torch.no_grad()
 def generate_in_slots(model, params, prompt, n_new, slots, max_seq):
     """Greedy tokens of ``prompt`` alone: one prefill of the prompt, then
@@ -1100,16 +1062,24 @@ def train_child(dev) -> int:
     at RESTART_AT; then restores that checkpoint and runs the last steps
     again, which must give the same parameters and optimizer state bit
     for bit.  This fresh process also times the scan kernel at phase
-    15b's training shape with the profiler, which in the smoke's own
-    process misses some of its launches (readings under the bound).
-    Prints JSON lines, the last one its result."""
+    15b's training shape and at phase 5e's Jamba prefill shape with the
+    profiler, which in the smoke's own process misses some of its
+    launches (readings under the bound).  Prints JSON lines, the last
+    one its result."""
     torch.use_deterministic_algorithms(True)
-    scan_args = scan_case(np.random.default_rng(6), dev, MAMBA_TRAIN_BT,
-                          MAMBA_TRAIN_L, get_config(MAMBA_ARCH).d_inner,
-                          get_config(MAMBA_ARCH).ssm_state, torch.bfloat16)
-    scan_device_ms = device_ms(lambda: k_scan.selective_scan(*scan_args),
-                               20)[0]
-    del scan_args
+    scan_device_ms = {}
+    jamba = get_config(JAMBA_ARCH)
+    for path, shape in (
+            ("train", (MAMBA_TRAIN_BT, MAMBA_TRAIN_L,
+                       get_config(MAMBA_ARCH).d_inner,
+                       get_config(MAMBA_ARCH).ssm_state)),
+            ("jamba_serve", (1, max(JAMBA_PROMPTS), jamba.d_inner,
+                             jamba.ssm_state))):
+        scan_args = scan_case(np.random.default_rng(6), dev, *shape,
+                              torch.bfloat16)
+        scan_device_ms[path] = device_ms(
+            lambda: k_scan.selective_scan(*scan_args), 20)[0]
+        del scan_args
     cfg = get_config(DENSE_ARCH).replace(dtype="float32")
     model = build_model(cfg, dev)
     params = model.init_params(seed=0)
@@ -1161,7 +1131,7 @@ def train_child(dev) -> int:
         "losses_last5": losses[-5:], "save_snapshot_s": save_s,
         "restore_s": restore_s, "restart_at": RESTART_AT,
         "restart_bitwise_equal": same, "restart_opt_bitwise_equal":
-        same_opt, "scan_train_shape_device_ms": scan_device_ms}),
+        same_opt, "scan_device_ms": scan_device_ms}),
         flush=True)
     return 0
 
@@ -1185,7 +1155,7 @@ def train_dense_child():
     if not (res["restart_bitwise_equal"] and res["restart_opt_bitwise_equal"]):
         raise AssertionError("train_dense: the restarted run differs from "
                              "the uninterrupted one")
-    return res["scan_train_shape_device_ms"]
+    return res["scan_device_ms"]
 
 
 class VjpTimer:
@@ -1297,15 +1267,22 @@ def train_mamba(dev, scan_ms):
 def train_consistency(dev):
     """Phase 16: one train step (2 micro-batches, batch 2 x 64, float32,
     TF32 off) of falcon-mamba-7b and smollm-360m at full width cut to 2
-    layers, on the card against the port on the CPU, from the same
+    layers, and of the qwen3-moe (2 layers) and Jamba (8 layers) smoke
+    configs, on the card against the port on the CPU, from the same
     parameters (drawn on the CPU, copied) and data: loss within 1e-4,
     grads within 1e-3 of each leaf's max |g|, parameters after the step
-    within 1e-4 (the reference's own bound, ``test_training.py``)."""
+    within 1e-4 (the reference's own bound, ``test_training.py``).  For
+    the MoE layers, how many tokens' top-k sets agree between the two
+    sides is logged, with the calls and tokens where they differ."""
     torch.backends.cuda.matmul.allow_tf32 = False
     tcfg = TrainStepConfig(microbatches=2)
     ocfg = AdamWConfig(lr=1e-3)
-    for arch in (MAMBA_ARCH, DENSE_ARCH):
-        cfg = get_config(arch).replace(n_layers=2, dtype="float32")
+    cases = [(get_config(arch).replace(n_layers=2, dtype="float32"),
+              "n_layers 2, float32") for arch in (MAMBA_ARCH, DENSE_ARCH)]
+    cases += [(get_config(arch, smoke=True).replace(dtype="float32"),
+               f"the smoke config ({get_config(arch, smoke=True).n_layers} "
+               f"layers), float32") for arch in (MOE_ARCH, JAMBA_ARCH)]
+    for cfg, cut in cases:
         sides = []
         for side in ("cpu", dev):
             model = build_model(cfg, side)
@@ -1315,14 +1292,28 @@ def train_consistency(dev):
             else:
                 params = start.to(dev)
             batch = copy_task_batch(cfg, 2, 64, 0, device=side)
-            grads, loss = make_grad_fn(model, tcfg)(params, batch)
+            routes = RouteTap()
+            try:
+                grads, loss = make_grad_fn(model, tcfg)(params, batch)
+            finally:
+                routes.close()
             params, _, _ = adamw_update(grads, adamw_init(params, ocfg),
                                         params, ocfg)
             sides.append((float(loss), {k: g.cpu() for k, g in
                                         grads.items()},
                           {k: p.detach().cpu() for k, p in
-                           params.named_parameters()}))
-        (loss, grads, new), (dloss, dgrads, dnew) = sides
+                           params.named_parameters()},
+                          [t.sort(dim=-1).values.cpu()
+                           for t in routes.take()]))
+        (loss, grads, new, sets), (dloss, dgrads, dnew, dsets) = sides
+        routing = {}
+        if sets:
+            agree = [(a == b).all(-1) for a, b in zip(sets, dsets)]
+            routing = {"topk_sets_agree": int(sum(a.sum() for a in agree)),
+                       "topk_sets": int(sum(a.numel() for a in agree)),
+                       "routings": len(sets), "disagree_at": {
+                           i: (~a).nonzero().tolist()[:8]
+                           for i, a in enumerate(agree) if not a.all()}}
         grad_rel = {k: float((dgrads[k] - g).abs().max())
                     / max(float(g.abs().max()), 1e-30)
                     for k, g in grads.items()}
@@ -1331,7 +1322,7 @@ def train_consistency(dev):
         bad = sorted([k for k, v in grad_rel.items() if v > 1e-3]
                      + [k for k, v in param_err.items() if v > 1e-4])
         log({"phase": "train_consistency", "arch": cfg.name,
-             "cut": "n_layers 2, float32, batch 2 x 64, 2 micro-batches",
+             "cut": f"{cut}, batch 2 x 64, 2 micro-batches", **routing,
              "loss_cpu": loss, "loss_card": dloss,
              "loss_abs_err": abs(loss - dloss),
              "max_grad_err_of_leaf_max": max(grad_rel.values()),
@@ -1342,6 +1333,268 @@ def train_consistency(dev):
             raise AssertionError(f"train_consistency ({cfg.name}): loss "
                                  f"{loss} vs {dloss}; leaves off their "
                                  f"bound: {bad}")
+
+
+# ----------------------------------------------------------------------
+# the moe and hybrid families: serving and training
+# ----------------------------------------------------------------------
+class RouteTap:
+    """Wraps ``moe.route``: keeps each call's expert ids (``[G, Tg, k]``,
+    on their device) for the capacity and agreement checks; launches
+    nothing itself."""
+
+    def __init__(self) -> None:
+        self.orig, self.calls = moe.route, []
+        moe.route = self._observed
+
+    def _observed(self, *args):
+        top_p, top_i = self.orig(*args)
+        self.calls.append(top_i.detach())
+        return top_p, top_i
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self) -> None:
+        moe.route = self.orig
+
+
+def dropped_slots(top_i, cfg) -> int:
+    """Slots of one ``moe.route`` call past their expert's capacity: each
+    group of ``Tg`` tokens keeps at most ``capacity_for(Tg)`` slots an
+    expert (the rest go to the trash index)."""
+    g, tg, k = top_i.shape
+    cap = moe.capacity_for(tg, k, cfg.n_experts, cfg.capacity_factor)
+    ids = top_i.reshape(g, -1)
+    counts = torch.zeros((g, cfg.n_experts), dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+                             1, ids, torch.ones_like(ids))
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def routing_of(cfg, tokens) -> dict:
+    """The routing group and capacity of one MoE call on ``tokens``."""
+    tg = moe.group_size_for(tokens, cfg.moe_group_size)
+    return {"tokens": tokens, "group": tg, "groups": tokens // tg,
+            "cap": moe.capacity_for(tg, cfg.experts_per_token,
+                                    cfg.n_experts, cfg.capacity_factor)}
+
+
+def free_card() -> dict:
+    """Hands what earlier phases left in the allocator's cache back to
+    the card; the card's free and total memory after, and what is still
+    allocated, in GB."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {"free_gb": free / 1e9, "total_gb": total / 1e9,
+            "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+
+
+def serve_routed(dev, label, arch, cuts, prompts, n_new):
+    """Phases 5b-5e: ``arch`` at full width (bf16, random weights from a
+    seeded generator on the card, ``cuts`` logged) serves one request
+    per entry of ``prompts`` through ``launch/serve.py``'s loop with
+    SERVE_SLOTS slots, ``n_new`` tokens each, each prompt prefilled
+    alone.  Each request's tokens must equal greedy generation of its
+    prompt alone at the loop's batch (``generate_in_slots``: bf16
+    products at 1 and 4 rows round apart); the first difference from
+    ``greedy_generate`` at batch 1 is logged.  With MoE layers, decode
+    rows are independent only while an expert's capacity holds a whole
+    step (one group of SERVE_SLOTS tokens), so the check also counts the
+    slots dropped by capacity: logged per prefill, and none allowed in a
+    decode step.  Returns the CUDA launches of the counted run and the
+    scan's largest inputs (None without Mamba layers)."""
+    full = get_config(arch)
+    cfg = full.replace(**cuts)
+    max_seq = max(prompts) + n_new
+    log({"phase": label, "arch": cfg.name,
+         "memory_before_init": free_card()})
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=0)
+    torch.cuda.synchronize()
+    kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i))
+             for i in range(cfg.n_layers)]
+    kv_bytes = (2 * sum(k == "attn" for k, _ in kinds) * SERVE_SLOTS
+                * max_seq * cfg.n_kv_heads * cfg.hd * 2)
+    log({"phase": label, "arch": cfg.name, "family": cfg.family,
+         "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+         "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
+         "vocab": cfg.vocab_size, "experts": cfg.n_experts, "top_k": cfg.experts_per_token,
+         "moe_d_ff": cfg.moe_d_ff, "shared_expert": cfg.shared_expert,
+         "layers": ["/".join(k) for k in kinds], "dtype": cfg.dtype,
+         "cut": {k: f"{v} of {getattr(full, k)}" for k, v in cuts.items()}
+         or "none (full size)",
+         "params": sum(p.numel() for p in params.parameters()),
+         "weights_gb": sum(p.numel() * p.element_size()
+                           for p in params.parameters()) / 1e9,
+         "init_s": time.perf_counter() - t0,
+         "init_largest_float32_draw_gb": 4 * min(
+             max(p.numel() for p in params.parameters()),
+             model_params.DRAW_ELEMENTS) / 1e9,
+         "memory_after_init": free_card(), "max_seq": max_seq,
+         "kv_cache_gb": kv_bytes / 1e9,
+         **({"routing_prefill": [routing_of(cfg, n)
+                                 for n in sorted(set(prompts))],
+             "routing_decode": routing_of(cfg, SERVE_SLOTS)}
+            if cfg.n_experts else {})})
+    rng = np.random.default_rng(5)
+    rb = RequestBatcher(SERVE_SLOTS)
+    for i, length in enumerate(prompts):
+        rb.submit(Request(id=f"{length}-{i}", max_new_tokens=n_new,
+                          prompt=rng.integers(0, cfg.vocab_size,
+                                              length).tolist()))
+    warm = RequestBatcher(SERVE_SLOTS)          # cuBLAS and the allocator
+    warm.submit(Request(id="warm", prompt=[1] * 8, max_new_tokens=2))
+    serve_requests(model, params, warm, max_seq)
+
+    timer, scans = ApplyTap(model, timed=True), ScanTap()
+    counters.reset_device_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_tok, steps = serve_requests(model, params, rb, max_seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.device_launch_stats()
+    scans.close()
+    timer.close(label)
+    done = rb.completed
+    if len(done) != len(prompts) or n_tok != len(done) * n_new or any(
+            len(r.generated) != n_new for r in done):
+        raise AssertionError(f"{label}: not every request was served")
+    mamba_layers = sum(k == "mamba" for k, _ in kinds)
+    want = {"selective_scan": mamba_layers * len(done)} if mamba_layers \
+        else {}
+    if timer.calls["prefill"] != len(done) or launches != want:
+        raise AssertionError(f"{label}: {timer.calls['prefill']} prefills, "
+                             f"CUDA launches {launches}, expected {want}")
+    log({"phase": label, "requests": len(done), "wall_s": wall,
+         "generated_tokens": n_tok, "decode_steps": steps,
+         "prefills": timer.calls["prefill"],
+         "prefill_s": timer.secs["prefill"],
+         "prefill_tokens_per_s": sum(prompts) / timer.secs["prefill"],
+         "decode_s": timer.secs["decode"],
+         "decode_tokens_per_s": (n_tok - len(done)) / timer.secs["decode"],
+         "decode_step_ms": 1e3 * timer.secs["decode"] / steps,
+         "tokens_per_s": n_tok / wall,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "cuda_launches": launches,
+         "selective_scan_per_prefill":
+         launches.get("selective_scan", 0) / len(done)})
+
+    # each request alone at the loop's shapes, counting the slots its
+    # prefill and decode steps drop; then, logged, greedy_generate at
+    # batch 1
+    routes = RouteTap()
+    n_moe = sum(f == "moe" for _, f in kinds)
+    differ, batch1, drops, by_layer = [], {}, {}, {}
+    try:
+        for r in done:
+            prompt = torch.tensor(r.prompt, dtype=torch.int32, device=dev)
+            if generate_in_slots(model, params, prompt, n_new, SERVE_SLOTS,
+                                 max_seq) != r.generated:
+                differ.append(r.id)
+            calls = routes.take()
+            by_layer[r.id] = [dropped_slots(t, cfg) for t in calls[:n_moe]]
+            drops[r.id] = sum(by_layer[r.id])
+            late = sum(dropped_slots(t, cfg) for t in calls[n_moe:])
+            if len(calls) != n_moe * n_new or late:
+                raise AssertionError(f"{label}: {len(calls)} routings, "
+                                     f"{late} slots dropped in decode steps")
+            alone = greedy_generate(model, params, {"tokens": prompt[None]},
+                                    n_new, max_seq=max_seq)
+            routes.take()
+            batch1[r.id] = next((k for k, (a, b) in enumerate(zip(
+                alone[0].tolist(), r.generated)) if a != b), None)
+    finally:
+        routes.close()
+    log({"phase": label, "check": "each request's tokens equal greedy "
+         "generation of its prompt alone at the loop's batch",
+         "differ": differ, **({
+             "dropped_slots_per_prefill": drops,
+             "slots_per_prefill": {r.id: n_moe * len(r.prompt)
+                                   * cfg.experts_per_token for r in done},
+             "dropped_slots_by_moe_layer": {
+                 done[-1].id: by_layer[done[-1].id]},
+             "dropped_slots_in_decode_steps": 0} if n_moe else {}),
+         "batch1_equal": sum(v is None for v in batch1.values()),
+         "batch1_first_difference": {k: v for k, v in batch1.items()
+                                     if v is not None}})
+    if differ:
+        raise AssertionError(f"{label}: requests {differ} differ from greedy "
+                             f"generation of their prompts alone")
+    largest = None
+    if scans.largest is not None:
+        largest = tuple(a.detach().clone() for a in scans.largest)
+    return launches, largest
+
+
+def serve_moe_and_hybrid(dev):
+    """Phases 5c-5e.  Returns Jamba's ``selective_scan`` launches and the
+    largest inputs its prefills gave the scan (Bt 1 x L 1024 x Di 16384
+    x S 16), for phase 6b."""
+    serve_routed(dev, "moe_serve", MOE_ARCH, {}, SERVE_TRAFFIC,
+                 SERVE_NEW_TOKENS)
+    serve_routed(dev, "maverick_serve", MAVERICK_ARCH, MAVERICK_CUTS,
+                 MAVERICK_PROMPTS, MAVERICK_NEW_TOKENS)
+    launches, inputs = serve_routed(dev, "jamba_serve", JAMBA_ARCH,
+                                    JAMBA_CUTS, JAMBA_PROMPTS,
+                                    JAMBA_NEW_TOKENS)
+    free_card()
+    return launches["selective_scan"], inputs
+
+
+def train_moe(dev):
+    """Phase 15c: qwen3-moe-30b-a3b at full width cut to MOE_TRAIN_LAYERS
+    layers, bf16, MOE_TRAIN_STEPS steps of the copy task at batch
+    MOE_TRAIN_BATCH x MOE_TRAIN_SEQ with ``remat="full"``: finite losses
+    that fall; step time, tokens/s and peak memory, beside the memory
+    reckoned before the run (bf16 parameters and grads, float32 AdamW
+    state as in phase 15b, bf16 and float32 logits)."""
+    full = get_config(MOE_ARCH)
+    cfg = full.replace(n_layers=MOE_TRAIN_LAYERS)
+    n = cfg.param_count()
+    logits = MOE_TRAIN_BATCH * MOE_TRAIN_SEQ * cfg.vocab_size
+    reckon = {"params_gb": 2 * n / 1e9, "grads_gb": 2 * n / 1e9,
+              "adamw_state_gb": 8 * n / 1e9,
+              "logits_gb": (2 + 4) * logits / 1e9}
+    reckon["total_gb"] = sum(reckon.values())
+    log({"phase": "train_moe", "arch": cfg.name,
+         "memory_before_init": free_card(), "reckoned": reckon})
+    model = build_model(cfg, dev)
+    params = model.init_params(seed=0)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=MOE_TRAIN_STEPS)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg, TrainStepConfig(remat="full"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        batch = copy_task_batch(cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, i,
+                                device=dev)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))               # synchronises
+        secs.append(time.perf_counter() - t0)
+    warm = statistics.median(secs[1:])
+    log({"phase": "train_moe", "arch": cfg.name, "dtype": cfg.dtype,
+         "n_layers": cfg.n_layers,
+         "cut": f"n_layers {cfg.n_layers} of {full.n_layers}",
+         "params": sum(p.numel() for p in params.parameters()),
+         "batch": MOE_TRAIN_BATCH, "seq": MOE_TRAIN_SEQ, "remat": "full",
+         "routing": routing_of(cfg, MOE_TRAIN_BATCH * MOE_TRAIN_SEQ),
+         "steps": MOE_TRAIN_STEPS, "first_step_s": secs[0], "step_s": warm,
+         "tokens_per_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / warm,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "losses": losses})
+    half = MOE_TRAIN_STEPS // 2
+    if not all(np.isfinite(losses)) or not (
+            statistics.mean(losses[half:]) < statistics.mean(losses[:half])):
+        raise AssertionError(f"train_moe: losses {losses}")
 
 
 # ----------------------------------------------------------------------
@@ -2378,13 +2631,27 @@ def run(dev) -> int:
 
     # ---- 5.-7. falcon-mamba-7b and smollm-360m serving ---------------
     scan_launches, scan_inputs = serve_mamba(dev)
-    serve_dense(dev)
+    serve_routed(dev, "dense_serve", DENSE_ARCH, {}, SERVE_TRAFFIC,
+                 SERVE_NEW_TOKENS)
     table.append(check_scan(dev, scan_inputs, scan_launches))
     check_consistency(dev)
 
+    # ---- 5c.-5e. the moe and hybrid families ------------------------
+    jamba_launches, jamba_inputs = serve_moe_and_hybrid(dev)
+
     # ---- 15.-16. training (before the fleet phases, after which the
-    # profiler records none of this process's kernels) -----------------
-    scan_train_ms = train_dense_child()
+    # profiler records none of this process's kernels), and 6b ---------
+    scan_child_ms = train_dense_child()
+    kernel_rows("selective_scan", k_scan.selective_scan,
+                ref.selective_scan_ref, {"jamba_serve": jamba_inputs}, [],
+                {"jamba_serve": jamba_launches},
+                lambda a: tuple(a[0].shape) + (a[2].shape[1],
+                                               a[0].element_size()),
+                tol=1e-4, reps=20, plain_reps=2, plain_rounds=3,
+                plain_device_reps=2, device=scan_child_ms["jamba_serve"])
+    table[-1]["launches"] += jamba_launches
+    del jamba_inputs
+    scan_train_ms = scan_child_ms["train"]
     train_launches, train_inputs = train_mamba(dev, scan_train_ms)
     kernel_rows("selective_scan", k_scan.selective_scan,
                 ref.selective_scan_ref, {"train": train_inputs}, [],
@@ -2395,6 +2662,7 @@ def run(dev) -> int:
                 plain_device_reps=2, device=scan_train_ms)
     table[-1]["launches"] += train_launches
     train_consistency(dev)
+    train_moe(dev)
 
     # ---- 8.-11. the fleet engine -------------------------------------
     table.append(fleet(dev))

@@ -19,7 +19,8 @@ import torch
 
 from . import build, counters, ref
 
-#: largest SSM state size the kernel keeps in registers
+#: largest SSM state size the kernel keeps in registers; the wrapper
+#: scans larger states in chunks of at most this many
 MAX_S = 16
 #: largest batch of one launch (the grid's y extent); the wrapper loops
 #: over batch chunks of at most this many rows (rows are independent)
@@ -36,8 +37,8 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
     ``u, delta [Bt, L, Di]``, ``A [Di, S]``, ``B, C [Bt, L, S]``,
     ``D [Di]``, any float type (computed in float32), any ``L >= 1`` and
-    ``Di >= 1``.  A CUDA tensor launches the kernel (``S <= MAX_S``; one
-    launch per chunk of at most ``MAX_BT`` batch rows) or raises:
+    ``Di >= 1``.  A CUDA tensor launches the kernel (one launch per
+    chunk of at most ``MAX_BT`` batch rows and ``MAX_S`` states) or raises:
     ``u``, ``delta``, ``B`` and ``C`` are read as they are when they
     share one type, else all four are cast to float32; ``A`` and ``D``
     are cast to float32.  A CPU tensor runs the plain version.
@@ -60,7 +61,7 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     if not build.launch_target(dev):
         return ref.selective_scan_ref(u, delta, A, B, C, D)
     if s > MAX_S:
-        raise ValueError(f"selective_scan kernel takes S <= {MAX_S}, got {s}")
+        return split_states(u, delta, A, B, C, D)
     if bt <= MAX_BT:
         return _ScanWithPlainGrad.apply(u, delta, A, B, C, D)
     parts = [_ScanWithPlainGrad.apply(u[i:i + MAX_BT], delta[i:i + MAX_BT],
@@ -68,6 +69,25 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
              for i in range(0, bt, MAX_BT)]
     return (torch.cat([y for y, _ in parts]),
             torch.cat([h for _, h in parts]))
+
+
+def split_states(u, delta, A, B, C, D):
+    """The scan of ``S > MAX_S`` states as scans of chunks of at most
+    ``MAX_S`` states: the states evolve independently and meet only in
+    ``y``'s sum over them, so the chunks' ``y`` are added in float32 (in
+    chunk order), ``D * u`` enters with the first chunk alone, and
+    ``h_last`` is the chunks' states side by side."""
+    s = A.shape[1]
+    zero = torch.zeros_like(D)
+    y, hs = None, []
+    for lo in range(0, s, MAX_S):
+        part = slice(lo, lo + MAX_S)
+        y_c, h_c = selective_scan(
+            u, delta, A[:, part].contiguous(), B[..., part].contiguous(),
+            C[..., part].contiguous(), D if lo == 0 else zero)
+        y = y_c if y is None else y + y_c
+        hs.append(h_c)
+    return y, torch.cat(hs, dim=-1)
 
 
 class _ScanWithPlainGrad(torch.autograd.Function):

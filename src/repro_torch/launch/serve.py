@@ -2,10 +2,11 @@
 [--device cpu]``.
 
 Continuous batching over a fixed number of decode slots (smoke configs).
-Each admitted prompt is prefilled alone and its cache written into its
-slot's rows, so the slot starts from a fresh cache (KV rows, ``index``,
-Mamba ``conv`` and ``ssm`` state); the first token comes from that
-prefill, the rest from decode steps of all slots together.  The
+Each admitted prompt is prefilled alone (a batched prefill would couple
+requests through a MoE layer's capacity drops) and its cache written
+into its slot's rows, so the slot starts from a fresh cache (KV rows,
+``index``, Mamba ``conv`` and ``ssm`` state); the first token comes from
+that prefill, the rest from decode steps of all slots together.  The
 reference instead runs a decode step of every slot per prompt token and
 resets only a reused slot's ``index``.
 """
@@ -70,6 +71,13 @@ def serve_requests(model: Model, params, batcher: RequestBatcher,
         free = [s for s in range(slots) if s not in live]
         if free:                 # keep free slots' decode writes in range
             cache["index"][free] = 0
+        # One decode step of all slots.  Rows are independent, so each
+        # request gets the tokens of its prompt alone, only while no
+        # token of the step can be dropped: a MoE layer routes the step's
+        # rows as one group, and an expert's capacity
+        # (``moe.capacity_for``: at least 4) must hold every row.  With
+        # 4 slots it is 4 for every config of the repo; with more slots
+        # a row, free slots' rows too, can take another's place.
         tokens, cache = decode(params, tokens, cache)
         out = tokens[:, 0].tolist()
         steps += 1

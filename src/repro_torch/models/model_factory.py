@@ -12,8 +12,8 @@
 
 ``params`` plays the part of the reference's parameter pytree: an
 ``nn.Module`` that holds the weights on the model's device, trainable.
-The port runs the dense and ssm families; other families raise
-``NotImplementedError`` (ROADMAP queue 1 item 4).
+The port runs the dense, moe, hybrid and ssm families; the vlm and
+audio families raise ``NotImplementedError`` (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 

@@ -9,6 +9,7 @@ the port keeps one entry per layer and loops over layers in Python.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
@@ -36,8 +37,9 @@ def init_from_specs(specs: Dict, generator: torch.Generator,
                     dtype: torch.dtype) -> Dict:
     """Random parameters by the reference's rules: norms one, conv and
     dt biases zero, ``A_log = log(1..S)``, ``D`` one, every other leaf
-    normal with std ``fan_in ** -0.5`` (0.02 without a fan-in axis),
-    drawn in float32 from ``generator`` on its device, then cast."""
+    normal with std ``fan_in ** -0.5`` (0.02 without a fan-in axis;
+    an expert leaf ``[E, d, f]`` has its fan-in on axis 1), drawn in
+    float32 from ``generator`` on its device, then cast."""
     device = generator.device
 
     def leaf(path, spec):
@@ -54,9 +56,30 @@ def init_from_specs(specs: Dict, generator: torch.Generator,
         if name == "D":
             return torch.ones(shape, dtype=torch.float32, device=device)
         scale = 0.02 if fan is None else float(shape[fan]) ** -0.5
-        return (torch.randn(shape, generator=generator, device=device,
-                            dtype=torch.float32) * scale).to(dtype)
+        return _normal(shape, scale, generator, dtype)
     return map_specs(leaf, specs)
+
+
+#: most elements of one float32 draw; a larger leaf is drawn in slices
+#: of its first axis, so the temporary stays near 1 GiB (a 5.4B-element
+#: expert leaf would need 21.5 GB at once)
+DRAW_ELEMENTS = 1 << 28
+
+
+def _normal(shape, scale: float, generator: torch.Generator,
+            dtype: torch.dtype) -> torch.Tensor:
+    """Normal values times ``scale``, drawn in float32, then cast."""
+    def draw(shp):
+        return torch.randn(shp, generator=generator, device=generator.device,
+                           dtype=torch.float32).mul_(scale).to(dtype)
+    numel = math.prod(shape)
+    if numel <= DRAW_ELEMENTS:
+        return draw(shape)
+    rows = max(1, DRAW_ELEMENTS // (numel // shape[0]))
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = draw((min(rows, shape[0] - i),) + tuple(shape[1:]))
+    return out
 
 
 def shapes_from_specs(specs: Dict, dtype: torch.dtype) -> Dict:

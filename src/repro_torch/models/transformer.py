@@ -1,6 +1,8 @@
-"""Decoder-only LM; the port covers the dense family (attention + dense
-FFN, GQA/MQA, optional qk-norm) and the attention-free ssm family (a
-stack of Mamba-1 blocks).
+"""Decoder-only LM covering the dense family (attention + dense FFN,
+GQA/MQA, optional qk-norm), the moe family (routed-expert FFNs on every
+layer or every other one, with an optional shared expert), the hybrid
+family (Jamba: Mamba and attention layers in one stack, periodic MoE)
+and the attention-free ssm family (a stack of Mamba-1 blocks).
 
 Where the reference stacks layers per scan period and iterates them with
 ``lax.scan``, the port holds one :class:`Block` per layer in an
@@ -13,8 +15,8 @@ one code path:
   prefill  — train-like forward that also emits a KV/SSM cache;
   decode   — single-token step against a fixed-size cache.
 
-The MoE, hybrid, vlm and audio families raise ``NotImplementedError``:
-they are ROADMAP queue 1 item 4.
+The vlm and audio families raise ``NotImplementedError``: they are
+ROADMAP queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -28,23 +30,23 @@ from torch.utils import checkpoint as ckpt
 from ..configs.base import ModelConfig
 from .layers import attention, mlp, rms_norm, rope
 from .mamba import MambaCache, mamba_mixer
+from .moe import MoEParams, moe_ffn
 
 MODES = ("train", "prefill", "decode")
 REMATS = ("full", "dots", "none")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer of ``cfg`` is attention with a dense FFN
-    (dense family) or a Mamba block with no FFN (ssm family)."""
-    kinds = {(cfg.layer_kind(i), cfg.ffn_kind(i))
-             for i in range(cfg.n_layers)}
-    want = {"dense": {("attn", "dense")}, "ssm": {("mamba", "none")}}
-    if cfg.vision_patches or cfg.encoder_layers or kinds != want.get(
-            cfg.family):
+    """Raise unless ``cfg`` is a decoder-only model of tokens: the dense,
+    moe, hybrid or ssm family, with no patch embeddings and no
+    encoder."""
+    if cfg.family not in FAMILIES or cfg.vision_patches \
+            or cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense and ssm "
-            "families; MoE, hybrid, vision and audio models are ROADMAP "
-            "queue 1 item 4")
+            f"{cfg.name} ({cfg.family}): the port runs the dense, moe, "
+            "hybrid and ssm families; vision and audio models are "
+            "ROADMAP queue 1 item 4")
 
 
 # ----------------------------------------------------------------------
@@ -77,15 +79,35 @@ def _sublayer_specs(cfg: ModelConfig, i: int) -> Dict[str, Tuple]:
             "D": ((di,), ("inner",), None),
             "out_proj": ((di, d), ("inner", "embed"), 0),
         })
-    if cfg.ffn_kind(i) == "dense":
+    fk = cfg.ffn_kind(i)
+    if fk != "none":
+        specs["ln2"] = ((d,), ("embed_act",), None)
+    if fk == "dense":
         f = cfg.d_ff
         specs.update({
-            "ln2": ((d,), ("embed_act",), None),
             "w_in": ((d, f), ("embed", "mlp"), 0),
             "w_out": ((f, d), ("mlp", "embed"), 0),
         })
         if cfg.gated_ffn:
             specs["w_gate"] = ((d, f), ("embed", "mlp"), 0)
+    elif fk == "moe":
+        e, f = cfg.n_experts, (cfg.moe_d_ff or cfg.d_ff)
+        expert = ("experts", "expert_embed", "expert_mlp")
+        specs.update({
+            "router": ((d, e), ("embed", None), 0),
+            "moe_w_in": ((e, d, f), expert, 1),
+            "moe_w_out": ((e, f, d),
+                          ("experts", "expert_mlp", "expert_embed"), 1),
+        })
+        if cfg.gated_ffn:
+            specs["moe_w_gate"] = ((e, d, f), expert, 1)
+        if cfg.shared_expert:
+            specs.update({
+                "shared_w_in": ((d, cfg.d_ff), ("embed", "mlp"), 0),
+                "shared_w_out": ((cfg.d_ff, d), ("mlp", "embed"), 0),
+            })
+            if cfg.gated_ffn:
+                specs["shared_w_gate"] = ((d, cfg.d_ff), ("embed", "mlp"), 0)
     return specs
 
 
@@ -169,22 +191,23 @@ _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _save_matmuls(ctx, op, *args, **kwargs):
     """``remat="dots"``: keep the outputs of matrix products with no
     batch dimension (the reference's ``dots_with_no_batch_dims_saveable``;
-    attention's batched products are recomputed), recompute the rest."""
+    attention's and the experts' batched products are recomputed),
+    recompute the rest."""
     return (ckpt.CheckpointPolicy.MUST_SAVE if op in _MATMULS
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 class Block(nn.Module):
     """One layer: ``h + mixer(rms_norm(h))`` with an attention or Mamba
-    mixer, then ``h + mlp(rms_norm(h))`` where the layer has a dense
-    FFN.  Parameters keep the reference's leaf names and layouts."""
+    mixer, then ``h + ffn(rms_norm(h))`` where the layer has a dense or
+    MoE FFN.  Parameters keep the reference's leaf names and layouts."""
 
     def __init__(self, cfg: ModelConfig, i: int,
                  params: Dict[str, torch.Tensor]) -> None:
         super().__init__()
         self.cfg = cfg
         self.attn = cfg.layer_kind(i) == "attn"
-        self.ffn = cfg.ffn_kind(i) == "dense"
+        self.ffn = cfg.ffn_kind(i)
         for name, t in params.items():
             self.register_parameter(name, nn.Parameter(t))
 
@@ -195,11 +218,30 @@ class Block(nn.Module):
             h, nc = self._attention(h, cache_in, positions, mode)
         else:
             h, nc = self._mamba(h, cache_in, mode)
-        if self.ffn:
+        if self.ffn == "dense":
             x = rms_norm(h, self.ln2, self.cfg.norm_eps)
             h = h + mlp(x, self.w_in, getattr(self, "w_gate", None),
                         self.w_out, self.cfg.gated_ffn)
+        elif self.ffn == "moe":
+            h = h + self._moe(rms_norm(h, self.ln2, self.cfg.norm_eps))
         return h, nc
+
+    def _moe(self, x):
+        """The routed experts (``moe_w_gate`` falls back to ``moe_w_in``
+        without a gated FFN, as in the reference) and the shared one."""
+        cfg = self.cfg
+        p = MoEParams(
+            router=self.router, w_in=self.moe_w_in,
+            w_gate=getattr(self, "moe_w_gate", self.moe_w_in),
+            w_out=self.moe_w_out,
+            shared_w_in=getattr(self, "shared_w_in", None),
+            shared_w_gate=getattr(self, "shared_w_gate", None),
+            shared_w_out=getattr(self, "shared_w_out", None))
+        return moe_ffn(x, p, k=cfg.experts_per_token,
+                       n_experts=cfg.n_experts,
+                       group_size=cfg.moe_group_size,
+                       capacity_factor=cfg.capacity_factor,
+                       gated=cfg.gated_ffn)
 
     def _attention(self, h, cache_in, positions, mode):
         """Decode writes the new token's K/V into ``cache_in`` in place

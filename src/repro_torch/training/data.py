@@ -51,11 +51,12 @@ def copy_task_batch(cfg: ModelConfig, batch: int, seq: int, step,
 
 def make_batch_for(cfg: ModelConfig, shape: ShapeSpec, step, seed: int = 17,
                    task: str = "lm", device=None) -> Dict[str, torch.Tensor]:
-    """Family-aware batch construction: tokens for the dense and ssm
-    families; audio frames and vision patches wait for their families."""
+    """Family-aware batch construction: tokens for the dense, moe,
+    hybrid and ssm families; audio frames and vision patches wait for
+    their families."""
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
-            f"{cfg.family} batches: the port runs the dense and ssm "
-            "families (ROADMAP queue 1 item 4)")
+            f"{cfg.family} batches: the port runs the dense, moe, hybrid "
+            "and ssm families (ROADMAP queue 1 item 4)")
     gen = copy_task_batch if task == "copy" else synthetic_lm_batch
     return gen(cfg, shape.global_batch, shape.seq_len, step, seed, device)

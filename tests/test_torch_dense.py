@@ -1,4 +1,5 @@
-"""The port's dense and ssm models against the JAX reference, on the CPU.
+"""The port's dense, ssm, moe and hybrid models against the JAX
+reference, on the CPU.
 
 Weights are made by the reference (``init_params``) and carried into the
 port with ``Model.params_from_reference``; token ids come from a numpy
@@ -6,7 +7,11 @@ seed.  Everything runs in float32 at the smoke sizes, with the
 reference's own tolerances (``tests/test_models.py``): 1e-4 for train and
 prefill logits, 5e-4 for decode against teacher forcing, 0.15 relative
 for the int8 KV cache.  The reference's Mamba scan runs in Pallas
-interpret mode (``conftest.py``).
+interpret mode (``conftest.py``).  The moe and hybrid smoke configs
+(qwen3-moe, llama4-maverick with its period of 2 and shared expert,
+Jamba with its period of 8) run at their capacity factor of 1.25, drops
+included, but against teacher forcing, where the reference's own test
+lifts capacity to 16 so that no token drops.
 """
 import jax
 import jax.numpy as jnp
@@ -31,7 +36,9 @@ from repro_torch.training import (AdamWConfig, TrainStepConfig, adamw_init,
                                   make_train_step)
 
 DENSE = ("smollm-360m", "qwen3-1.7b", "granite-34b", "internlm2-20b")
-ARCHS = DENSE + ("falcon-mamba-7b",)
+MOE = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+       "jamba-1.5-large-398b")
+ARCHS = DENSE + ("falcon-mamba-7b",) + MOE
 TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=5e-4, rtol=5e-4)
 
@@ -82,8 +89,9 @@ def _ref_pad(cache, s_total):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_arch_smoke_forward(pair, arch):
-    """One train-mode forward per dense and ssm arch: shapes, finite, and
-    equal to the reference's logits within 1e-4."""
+    """One train-mode forward per arch: shapes, finite, and equal to the
+    reference's logits within 1e-4 (MoE: the same tokens everywhere, so
+    every group sends its tokens to the same experts and drops most)."""
     jm, jp, model, params = pair(arch)
     toks = np.ones((2, 64), np.int32)
     want, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)}, mode="train")
@@ -96,12 +104,14 @@ def test_arch_smoke_forward(pair, arch):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-1.7b", "granite-34b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b"] + list(MOE))
 def test_prefill_decode_matches_teacher_forcing(pair, arch):
     """Train, prefill and decode logits against the reference's, and
     decode against the port's own teacher forcing (qwen3: qk-norm;
-    granite: MQA and the GELU MLP)."""
-    jm, jp, model, params = pair(arch)
+    granite: MQA and the GELU MLP; MoE and hybrid at the reference's
+    capacity factor of 16, so no token drops)."""
+    over = {"capacity_factor": 16.0} if get_config(arch).n_experts else {}
+    jm, jp, model, params = pair(arch, **over)
     b, s, sp = 2, 32, 28
     toks = _tokens(b, s, model.cfg.vocab_size)
     full, _ = jm.apply(jp, {"tokens": jnp.asarray(toks)}, mode="train",
@@ -217,11 +227,13 @@ def test_chunked_attention_at_1024():
                          *[torch.from_numpy(pos[:, :1000].copy())] * 2)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b"]
+                         + list(MOE))
 def test_arch_smoke_train_step(pair, arch):
     """One optimizer step with 2 micro-batches: loss finite and within
-    1e-4 of the reference's, the step counter at 1, and every updated
-    leaf within 1e-4 of the reference's."""
+    1e-4 of the reference's, the grad norm within 1e-4 of it relative,
+    the step counter at 1, and every updated leaf within 1e-4 of the
+    reference's (MoE: capacity drops in the step)."""
     jm, jp, model, _ = pair(arch)
     tree = jax.tree.map(np.asarray, jp)
     toks = np.ones((4, 32), np.int32)
@@ -237,6 +249,8 @@ def test_arch_smoke_train_step(pair, arch):
                          {"tokens": torch.from_numpy(toks)})
     assert bool(torch.isfinite(met["loss"]))
     assert abs(float(met["loss"]) - float(jmet["loss"])) < 1e-4
+    assert abs(float(met["grad_norm"]) - float(jmet["grad_norm"])) \
+        < 1e-4 * float(jmet["grad_norm"])
     assert int(opt.step) == 1 == int(jopt.step)
     moved = max(float((p.detach() - before[n]).abs().max())
                 for n, p in params.named_parameters())

@@ -379,6 +379,23 @@ def test_selective_scan_serve_dtypes_match_reference(jx, dtype, bt, l, di, s,
         _close(h, want[1], 2e-4)
 
 
+@pytest.mark.parametrize("s", [17, 32, 64])
+def test_selective_scan_split_states_matches_reference(jx, s):
+    """States past the kernel's 16, scanned in chunks of 16 (on the CPU
+    each chunk through the plain version) with their y added in float32
+    and D * u once: the reference's oracle within 2e-4, and the plain
+    version in one piece within 1e-5."""
+    args = _scan_inputs(2, 37, 48, s)
+    y, h = t_scan.split_states(*map(torch.from_numpy, args))
+    assert y.shape == (2, 37, 48) and h.shape == (2, 48, s)
+    want = jx.scan_ref(*args)
+    _close(y, want[0], 2e-4)
+    _close(h, want[1], 2e-4)
+    whole = tref.selective_scan_ref(*map(torch.from_numpy, args))
+    _close(y, whole[0], 1e-5)
+    assert torch.equal(h, whole[1])     # the states do not mix
+
+
 def test_selective_scan_cpu_wrapper_casts_and_counts():
     args = [torch.from_numpy(x) for x in _scan_inputs(2, 9, 24, 3)]
     half = [x.to(torch.bfloat16) for x in args]
@@ -681,9 +698,34 @@ def test_selective_scan_cuda_ragged_tiling_equals_plain(cuda, bt, l, di, s,
 
 @pytest.mark.cuda
 def test_selective_scan_cuda_refuses_wide_state(cuda):
-    args = _scan_inputs(1, 4, 8, t_scan.MAX_S + 1)
-    with pytest.raises(ValueError):
-        t_scan.selective_scan(*[torch.from_numpy(x).to(cuda) for x in args])
+    """The kernel's state limit no longer reaches the caller: S = MAX_S +
+    1 runs as two launches (16 states and 1) within 1e-4 of the plain
+    version."""
+    args = [torch.from_numpy(x).to(cuda)
+            for x in _scan_inputs(1, 4, 8, t_scan.MAX_S + 1)]
+    counters.reset_device_launches()
+    y, h = t_scan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {"selective_scan": 2}
+    yw, hw = tref.selective_scan_ref(*args)
+    _close(y.cpu(), yw.cpu(), 1e-4)
+    _close(h.cpu(), hw.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [32, 64])
+def test_selective_scan_cuda_splits_states_past_16(cuda, s, dtype):
+    """S 32 and 64: one launch per 16 states, y and h_last within 1e-4 of
+    the plain version; h_last is each chunk's states side by side."""
+    args = _scan_on(cuda, _scan_inputs(2, 130, 4001, s), dtype)
+    counters.reset_device_launches()
+    y, h = t_scan.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {"selective_scan": s // 16}
+    yw, hw = tref.selective_scan_ref(*args)
+    _close(y.cpu(), yw.cpu(), 1e-4)
+    _close(h.cpu(), hw.cpu(), 1e-4)
 
 
 # ------------------------------------------------------ scan gradients

@@ -2,11 +2,13 @@
 
 * ``launch/serve.py``'s loop gives each request the tokens of
   ``greedy_generate`` on its prompt alone, through reused slots, for a
-  dense and a Mamba model (a reused Mamba slot starts from a fresh
-  ``conv``/``ssm`` state; a reused KV slot from zeroed rows);
+  dense, a Mamba, a MoE and a hybrid model (a reused Mamba slot starts
+  from a fresh ``conv``/``ssm`` state; a reused KV slot from zeroed
+  rows; with 3 slots a MoE decode step drops no token);
 * ``python -m repro_torch.launch.{serve,train}`` print the reference's
   lines (the train launcher's lr values equal the reference's schedule;
-  ``--resume`` continues from the last checkpoint);
+  ``--resume`` continues from the last checkpoint), for the moe and
+  hybrid smoke configs too;
 * ``examples_torch/train_lm.py`` at 2 steps writes the reference's
   ``log.json`` fields and lines; ``examples_torch/serve_lm.py`` serves
   the reference example's requests (same ids, prompts, token counts)
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget
 from repro.training import AdamWConfig as JAdamW
 from repro.training import cosine_lr as jcosine_lr
 
@@ -54,12 +57,13 @@ def _run(mod, argv, cwd, monkeypatch, capsys):
     return capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "falcon-mamba-7b",
+                                  "qwen3-moe-30b-a3b", "jamba-1.5-large-398b"])
 def test_serve_loop_gives_each_request_its_greedy_tokens(arch):
     """7 requests of 1-9 prompt tokens through 3 slots (slots are reused;
     one request of a single new token frees its slot at admission):
     every request's tokens equal ``greedy_generate`` on its prompt alone,
-    and each prompt is prefilled once (Mamba: one scan per layer)."""
+    and each prompt is prefilled once (one scan per Mamba layer)."""
     cfg = get_config(arch, smoke=True).replace(dtype="float32")
     model = build_model(cfg, "cpu")
     params = model.init_params(seed=0)
@@ -75,8 +79,8 @@ def test_serve_loop_gives_each_request_its_greedy_tokens(arch):
     scans = ops.launch_stats().get("selective_scan", 0) - before
     assert n_tok == sum(news) and len(rb.completed) == len(lengths)
     assert steps < sum(news)
-    assert scans == (len(lengths) * cfg.n_layers
-                     if cfg.family == "ssm" else 0)
+    assert scans == len(lengths) * sum(cfg.layer_kind(i) == "mamba"
+                                       for i in range(cfg.n_layers))
     for req in rb.completed:
         want = greedy_generate(model, params, {"tokens": torch.tensor(
             [req.prompt], dtype=torch.int32)}, req.max_new_tokens,
@@ -101,6 +105,37 @@ def test_serve_main_prints_reference_line(capsys):
     m = re.fullmatch(r"arch=smollm-360m-smoke: 8 requests, (\d+) tokens, "
                      r"\d+ tok/s", out[0])
     assert m and int(m.group(1)) == 97
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b"])
+def test_serve_main_moe_and_hybrid(arch, capsys):
+    """The serve launcher on a MoE and a hybrid smoke config: the
+    reference's line, and the 97 tokens its 8 requests ask for."""
+    launch_serve.main(["--arch", arch, "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    name = re.escape(get_config(arch, smoke=True).name)
+    m = re.fullmatch(rf"arch={name}: 8 requests, (\d+) tokens, \d+ tok/s",
+                     out[-1])
+    assert len(out) == 1 and m and int(m.group(1)) == 97
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b"])
+def test_train_main_moe_and_hybrid(arch, tmp_path, capsys):
+    """The train launcher on a MoE and a hybrid smoke config for 2 steps
+    of batch 2 x 32: the reference's first line (its parameter count),
+    finite step lines in its format, and the final checkpoint."""
+    ck = str(tmp_path / "ck")
+    launch_train.main(["--arch", arch, "--steps", "2", "--batch", "2",
+                       "--seq", "32", "--ckpt-dir", ck, "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    jcfg = jget(arch, smoke=True)
+    assert out[0] == (f"arch={jcfg.name} params={jcfg.param_count()/1e6:.1f}M"
+                      " batch=2 seq=32")
+    for i, line in zip((0, 1), out[1:3]):
+        m = re.fullmatch(rf"step {i:4d} loss (\d+\.\d{{4}}) lr \S+", line)
+        assert m and np.isfinite(float(m.group(1))), line
+    assert re.fullmatch(rf"done in \d+\.\ds; checkpoints in {ck}", out[3])
+    assert (tmp_path / "ck" / "step_2" / "manifest.json").exists()
 
 
 def test_train_main_prints_reference_lines_and_resumes(tmp_path, capsys):

@@ -269,11 +269,18 @@ def test_without_gpu_the_model_raises():
         ops.resolve_device("cuda:0")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b",
-                                  "whisper-medium", "internvl2-76b"])
-def test_other_families_raise(arch):
+# The moe and hybrid families run since they were ported: their cases
+# give a MoE and a hybrid model patch embeddings or an encoder, which
+# the port refuses in any family until vlm and audio are ported.
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3-moe-30b-a3b", {"vision_patches": 4}),
+    ("jamba-1.5-large-398b", {"encoder_layers": 2}),
+    ("whisper-medium", {}), ("internvl2-76b", {})],
+    ids=["qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "whisper-medium",
+         "internvl2-76b"])
+def test_other_families_raise(arch, over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch, smoke=True), "cpu")
+        build_model(get_config(arch, smoke=True).replace(**over), "cpu")
 
 
 def test_cpu_serving_launches_no_cuda_kernel(ref):
