@@ -55,7 +55,10 @@ and drives the simulator's main path on the card:
    decode steps match the train-mode forward's logits within 5e-4, and
    smollm's int8 KV cache within the reference's 0.15 relative error;
    then the qwen3-moe, llama4-maverick and Jamba smoke configs in
-   float32 with ``capacity_factor`` 16 (no drops), within 5e-4;
+   float32 with ``capacity_factor`` 16 (no drops), within 5e-4; then
+   internvl2-76b at full width cut to 2 layers (the prompt after its 256
+   patches) and whisper-medium cut to 2 + 2 layers (256 frames), within
+   5e-4;
 5c. qwen3-moe-30b-a3b at full size (48 layers, 128 experts top-8,
    bf16, ~61 GB of random weights drawn leaf by leaf after the earlier
    phases' memory is freed) serves phase 5b's traffic through
@@ -77,6 +80,20 @@ and drives the simulator's main path on the card:
    whose fresh process reads its device time) the scan kernel against
    its plain version on the largest inputs those prefills gave it (Bt 1
    x L 1024 x Di 16384 x S 16, bf16), with its times and bound;
+5f. internvl2-76b at full width (d_model 8192, 64/8 heads, d_ff 28672,
+   vocab 128256, untied head) cut to 8 of 80 layers (~17.9 GB of random
+   bf16 weights) serves 8 requests through ``launch/serve.py``'s loop (4
+   slots), each with its own 256 patches (``request_inputs``) and a
+   prompt of 256 or 768 tokens, 32 new tokens, ``max_seq`` 1056: each
+   request equal to generation of its patches and prompt alone at the
+   loop's batch; prefill and decode tokens/s, peak memory and the decode
+   bound (the weights a step reads at the HBM rate);
+5g. whisper-medium at full size (24 + 24 layers, bf16): 8 requests of
+   1024 frames each (about 20 s of audio: the attention's 512-query
+   chunking refuses Whisper's 1500), decoder prompts of 4 and 224
+   tokens, 64 new tokens, ``max_seq`` 448, the cache's cross rows sized
+   to the frames; the same check, and the encoder's ms per request;
+   neither 5f nor 5g launches a kernel of the port;
 8. the fleet engine (``fleet_engine``, one thread block per sim): the
    Seth grid, the 8 Table-2 policies x 16 seeds of the Seth stream (128
    sims of 10,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
@@ -139,8 +156,9 @@ and drives the simulator's main path on the card:
    share of a step (timed) and the scan kernel's (profiler); the scan
    against its plain version at the training shape;
 16. training consistency: falcon-mamba-7b and smollm-360m at full width
-   cut to 2 layers, and the qwen3-moe (2 layers) and Jamba (8 layers)
-   smoke configs, float32, TF32 off: one step (batch 2 x 64, 2
+   cut to 2 layers, and the qwen3-moe (2 layers), Jamba (8 layers),
+   internvl2-76b and whisper-medium smoke configs (``make_batch_for``'s
+   shapes), float32, TF32 off: one step (batch 2 x 64, 2
    micro-batches) on the card against the port on the CPU from the same
    parameters and data: loss within 1e-4, grads within 1e-3 of each
    leaf's max |g|, parameters within 1e-4; the MoE tokens whose top-k
@@ -148,7 +166,11 @@ and drives the simulator's main path on the card:
 15c. (after 16) qwen3-moe-30b-a3b at full width cut to 4 layers (~3.1B
    parameters), bf16, 10 steps of the copy task at batch 8 x 512 with
    ``remat="full"``: finite losses that fall, step time, tokens/s and
-   peak memory beside the memory reckoned before the run.
+   peak memory beside the memory reckoned before the run;
+15d. (after 15c) whisper-medium at full size, bf16, 10 steps of the copy
+   task at ``make_batch_for``'s audio shapes for 1024 frames x batch 8
+   (frames [8, 1024, 1024], decoder tokens [8, 128]), ``remat="full"``:
+   the same checks and numbers.
 
 Phases 15-16 run right after phase 7: once the fleet phases have run,
 the profiler records none of this process's kernels (phase 11 profiles
@@ -210,6 +232,7 @@ from repro_torch.kernels import build, counters, ops, ref  # noqa: E402
 from repro_torch.kernels import ebf_shadow as k_ebf  # noqa: E402
 from repro_torch.kernels import selective_scan as k_scan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.fleet import (ALLOC_BF, ALLOC_FF, ALLOC_NAMES,  # noqa: E402
                                SCHED_EBF, SCHED_FIFO, SCHED_LJF,
                                SCHED_NAMES, SCHED_SJF, FleetRunner,
@@ -220,7 +243,8 @@ from repro_torch.fleet.state import (COMPLETED, REJECTED,  # noqa: E402
 from repro_torch.experimentation import Experiment  # noqa: E402
 from repro_torch.fleet.runner import FleetResult  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
-from repro_torch.launch.serve import serve_requests  # noqa: E402
+from repro_torch.launch.serve import (request_inputs,  # noqa: E402
+                                     serve_requests)
 from repro_torch.models import build_model, moe  # noqa: E402
 from repro_torch.models import params as model_params  # noqa: E402
 from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
@@ -229,7 +253,7 @@ from repro_torch.serving import (Request, RequestBatcher,  # noqa: E402
 from repro_torch.serving.serve_step import pad_kv  # noqa: E402
 from repro_torch.training import (AdamWConfig, TrainStepConfig,  # noqa: E402
                                   adamw_init, adamw_update, copy_task_batch,
-                                  make_train_step)
+                                  make_batch_for, make_train_step)
 from repro_torch.training.train_step import make_grad_fn  # noqa: E402
 from repro_torch.workloads.synthetic import SyntheticWorkload  # noqa: E402
 
@@ -279,6 +303,21 @@ JAMBA_CUTS = {"n_layers": 8, "moe_d_ff": 3072}
 JAMBA_PROMPTS, JAMBA_NEW_TOKENS = (512, 512, 1024, 1024), 16
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 10
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 512
+# the vlm and audio families: internvl2-76b at full width cut to 8 of 80
+# layers (17.9 GB; whole it is 141 GB); whisper-medium at full size.  The
+# attention's 512-query chunking takes 256 patches + 256 or 768 prompt
+# tokens, and 1024 frames (about 20 s of audio) where Whisper's window
+# has 1500
+VLM_ARCH, VLM_CUTS = "internvl2-76b", {"n_layers": 8}
+VLM_PROMPTS = (256,) * SERVE_SLOTS + (768,) * SERVE_SLOTS
+VLM_NEW_TOKENS, VLM_MAX_SEQ = 32, 1056
+AUDIO_ARCH, AUDIO_FRAMES = "whisper-medium", 1024
+AUDIO_PROMPTS = (4,) * SERVE_SLOTS + (224,) * SERVE_SLOTS
+AUDIO_NEW_TOKENS, AUDIO_MAX_SEQ = 64, 448      # Whisper's text context
+CHECK_FRAMES = 256              # phase 7's encoder input
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_BATCH = 10, 8
+AUDIO_TRAIN_SHAPE = ShapeSpec("train", AUDIO_FRAMES, AUDIO_TRAIN_BATCH,
+                              "train")
 
 # kernel -> (CUDA source, TPU kernel it replaces, path that launches it)
 KERNELS = {
@@ -993,10 +1032,19 @@ def check_consistency(dev):
         consistency_of(dev, get_config(arch, smoke=True).replace(
             dtype="float32", capacity_factor=16.0),
             "the smoke config, float32, capacity_factor 16")
+    for arch, cuts in ((VLM_ARCH, {"n_layers": 2}),
+                       (AUDIO_ARCH, {"n_layers": 2, "encoder_layers": 2})):
+        full = get_config(arch)
+        consistency_of(dev, full.replace(dtype="float32", **cuts), ", ".join(
+            f"{k} {v} of {getattr(full, k)}" for k, v in cuts.items())
+            + ", float32")
+        free_card()
 
 
 @torch.no_grad()
 def consistency_of(dev, cfg, cut):
+    """The vlm prompt follows its patches (logits compared at the token
+    positions); the audio decoder reads CHECK_FRAMES frames."""
     kv = cfg.kv_cache_dtype
     model = build_model(cfg, dev)
     params = model.init_params(seed=1)
@@ -1004,10 +1052,19 @@ def consistency_of(dev, cfg, cut):
     n = CHECK_PROMPT + CHECK_STEPS
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, n)).astype(
         np.int32)).to(dev)
-    full, _ = model.apply(params, {"tokens": toks})
+    extra, off = {}, 0
+    if cfg.family == "vlm":
+        off = cfg.vision_patches
+        extra["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, off, cfg.d_model)).astype(np.float32)).to(dev)
+    elif cfg.family == "audio":
+        extra["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, CHECK_FRAMES, cfg.d_model)).astype(np.float32)).to(dev)
+    full, _ = model.apply(params, {"tokens": toks, **extra})
+    full = full[:, off:]
     last, cache = make_prefill_step(model)(
-        params, {"tokens": toks[:, :CHECK_PROMPT]})
-    cache = pad_kv(cache, n)
+        params, {"tokens": toks[:, :CHECK_PROMPT], **extra})
+    cache = pad_kv(cache, off + n)
     errs = [float((last - full[:, CHECK_PROMPT - 1]).abs().max())]
     ok = torch.allclose(last, full[:, CHECK_PROMPT - 1], atol=5e-4,
                         rtol=5e-4)
@@ -1019,6 +1076,7 @@ def consistency_of(dev, cfg, cut):
             logits[:, 0], full[:, t], atol=5e-4, rtol=5e-4))
     rel = max(errs) / float(full.std())
     log({"phase": "consistency", "arch": cfg.name, "cut": cut,
+         **({k: list(v.shape) for k, v in extra.items()}),
          "kv_cache_dtype": kv or cfg.dtype,
          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
          "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
@@ -1035,11 +1093,14 @@ def consistency_of(dev, cfg, cut):
 # the dense family: serving and training
 # ----------------------------------------------------------------------
 @torch.no_grad()
-def generate_in_slots(model, params, prompt, n_new, slots, max_seq):
-    """Greedy tokens of ``prompt`` alone: one prefill of the prompt, then
-    decode steps of ``slots`` rows that each hold a copy of it (the serve
-    loop's decode shapes); row 0's tokens."""
-    logits, one = make_prefill_step(model)(params, {"tokens": prompt[None]})
+def generate_in_slots(model, params, prompt, n_new, slots, max_seq,
+                      extra=None):
+    """Greedy tokens of ``prompt`` alone: one prefill of the prompt (with
+    its ``extra`` batch entries, patches or frames), then decode steps of
+    ``slots`` rows that each hold a copy of it (the serve loop's decode
+    shapes); row 0's tokens."""
+    logits, one = make_prefill_step(model)(
+        params, {"tokens": prompt[None], **(extra or {})})
     one = pad_kv(one, max_seq)
     cache = {"blocks": [{k: v.expand(slots, *v.shape[1:]).contiguous()
                          for k, v in blk.items()} for blk in one["blocks"]],
@@ -1281,7 +1342,9 @@ def train_consistency(dev):
               "n_layers 2, float32") for arch in (MAMBA_ARCH, DENSE_ARCH)]
     cases += [(get_config(arch, smoke=True).replace(dtype="float32"),
                f"the smoke config ({get_config(arch, smoke=True).n_layers} "
-               f"layers), float32") for arch in (MOE_ARCH, JAMBA_ARCH)]
+               f"layers), float32")
+              for arch in (MOE_ARCH, JAMBA_ARCH, VLM_ARCH, AUDIO_ARCH)]
+    shape = ShapeSpec("t", 64, 2, "train")
     for cfg, cut in cases:
         sides = []
         for side in ("cpu", dev):
@@ -1291,7 +1354,7 @@ def train_consistency(dev):
                 start = copy.deepcopy(params)
             else:
                 params = start.to(dev)
-            batch = copy_task_batch(cfg, 2, 64, 0, device=side)
+            batch = make_batch_for(cfg, shape, 0, task="copy", device=side)
             routes = RouteTap()
             try:
                 grads, loss = make_grad_fn(model, tcfg)(params, batch)
@@ -1323,6 +1386,7 @@ def train_consistency(dev):
                      + [k for k, v in param_err.items() if v > 1e-4])
         log({"phase": "train_consistency", "arch": cfg.name,
              "cut": f"{cut}, batch 2 x 64, 2 micro-batches", **routing,
+             "batch": {k: list(v.shape) for k, v in batch.items()},
              "loss_cpu": loss, "loss_card": dloss,
              "loss_abs_err": abs(loss - dloss),
              "max_grad_err_of_leaf_max": max(grad_rel.values()),
@@ -1393,23 +1457,50 @@ def free_card() -> dict:
             "allocated_gb": torch.cuda.memory_allocated() / 1e9}
 
 
-def serve_routed(dev, label, arch, cuts, prompts, n_new):
-    """Phases 5b-5e: ``arch`` at full width (bf16, random weights from a
+class EncodeTimer:
+    """Wraps an ``EncDec``'s ``encode``: host seconds of each call between
+    two synchronises (the encoder's share of an audio prefill)."""
+
+    def __init__(self, params) -> None:
+        self.params, self.orig, self.secs = params, params.encode, []
+        params.encode = self._timed
+
+    def _timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.orig(*args, **kw)
+        torch.cuda.synchronize()
+        self.secs.append(time.perf_counter() - t0)
+        return out
+
+    def close(self) -> None:
+        del self.params.encode
+
+
+def serve_routed(dev, label, arch, cuts, prompts, n_new, max_seq=None,
+                 frames=None):
+    """Phases 5b-5g: ``arch`` at full width (bf16, random weights from a
     seeded generator on the card, ``cuts`` logged) serves one request
     per entry of ``prompts`` through ``launch/serve.py``'s loop with
     SERVE_SLOTS slots, ``n_new`` tokens each, each prompt prefilled
-    alone.  Each request's tokens must equal greedy generation of its
-    prompt alone at the loop's batch (``generate_in_slots``: bf16
-    products at 1 and 4 rows round apart); the first difference from
-    ``greedy_generate`` at batch 1 is logged.  With MoE layers, decode
-    rows are independent only while an expert's capacity holds a whole
-    step (one group of SERVE_SLOTS tokens), so the check also counts the
-    slots dropped by capacity: logged per prefill, and none allowed in a
-    decode step.  Returns the CUDA launches of the counted run and the
-    scan's largest inputs (None without Mamba layers)."""
+    alone, with its own patches (vlm) or ``frames`` frames (audio) drawn
+    by the launcher's ``request_inputs``.  Each request's tokens must
+    equal greedy generation of its inputs alone at the loop's batch
+    (``generate_in_slots``: bf16 products at 1 and 4 rows round apart);
+    the first difference from ``greedy_generate`` at batch 1 is logged.  With MoE layers, decode rows are independent
+    only while an expert's capacity holds a whole step (one group of
+    SERVE_SLOTS tokens), so the check also counts the slots dropped by
+    capacity: logged per prefill, and none allowed in a decode step.
+    ``max_seq`` defaults to the patches, the longest prompt and
+    ``n_new``.  Logs the decode bound: the weights a step reads (all but
+    an untied embedding table, of which it gathers rows, and an encoder,
+    whose output the cache holds) and the whole cache, at the HBM rate.  Returns the CUDA launches of the counted run
+    and the scan's largest inputs (None without Mamba layers)."""
     full = get_config(arch)
     cfg = full.replace(**cuts)
-    max_seq = max(prompts) + n_new
+    audio = cfg.family == "audio"
+    patches = cfg.vision_patches if cfg.family == "vlm" else 0
+    max_seq = max_seq or patches + max(prompts) + n_new
     log({"phase": label, "arch": cfg.name,
          "memory_before_init": free_card()})
     torch.cuda.reset_peak_memory_stats()
@@ -1420,7 +1511,13 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
     kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i))
              for i in range(cfg.n_layers)]
     kv_bytes = (2 * sum(k == "attn" for k, _ in kinds) * SERVE_SLOTS
-                * max_seq * cfg.n_kv_heads * cfg.hd * 2)
+                * (max_seq + (frames if audio else 0)) * cfg.n_kv_heads
+                * cfg.hd * 2)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    read = sum(p.numel() * p.element_size()
+               for n, p in params.named_parameters()
+               if not (n.startswith(("enc_blocks.", "enc_final_norm"))
+                       or n == "embed" and not cfg.tie_embeddings))
     log({"phase": label, "arch": cfg.name, "family": cfg.family,
          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
          "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.hd,
@@ -1430,9 +1527,11 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
          "cut": {k: f"{v} of {getattr(full, k)}" for k, v in cuts.items()}
          or "none (full size)",
          "params": sum(p.numel() for p in params.parameters()),
-         "weights_gb": sum(p.numel() * p.element_size()
-                           for p in params.parameters()) / 1e9,
-         "init_s": time.perf_counter() - t0,
+         "weights_gb": weights / 1e9, "init_s": time.perf_counter() - t0,
+         **({"vision_patches": patches} if patches else {}),
+         **({"encoder_layers": cfg.encoder_layers, "frames": frames}
+            if audio else {}),
+         "decode_bound_ms": 1e3 * (read + kv_bytes) / HBM_BYTES_PER_S,
          "init_largest_float32_draw_gb": 4 * min(
              max(p.numel() for p in params.parameters()),
              model_params.DRAW_ELEMENTS) / 1e9,
@@ -1443,25 +1542,32 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
              "routing_decode": routing_of(cfg, SERVE_SLOTS)}
             if cfg.n_experts else {})})
     rng = np.random.default_rng(5)
-    rb = RequestBatcher(SERVE_SLOTS)
+    rb, inputs = RequestBatcher(SERVE_SLOTS), {}
     for i, length in enumerate(prompts):
-        rb.submit(Request(id=f"{length}-{i}", max_new_tokens=n_new,
+        rid = f"{length}-{i}"
+        rb.submit(Request(id=rid, max_new_tokens=n_new,
                           prompt=rng.integers(0, cfg.vocab_size,
                                               length).tolist()))
+        inputs[rid] = {k: v.to(dev) for k, v in request_inputs(
+            cfg, length, frames, i).items()}
     warm = RequestBatcher(SERVE_SLOTS)          # cuBLAS and the allocator
     warm.submit(Request(id="warm", prompt=[1] * 8, max_new_tokens=2))
-    serve_requests(model, params, warm, max_seq)
+    serve_requests(model, params, warm, max_seq,
+                   {"warm": request_inputs(cfg, 8, frames, len(prompts))})
 
     timer, scans = ApplyTap(model, timed=True), ScanTap()
+    encoder = EncodeTimer(params) if audio else None
     counters.reset_device_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    n_tok, steps = serve_requests(model, params, rb, max_seq)
+    n_tok, steps = serve_requests(model, params, rb, max_seq, inputs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counters.device_launch_stats()
     scans.close()
     timer.close(label)
+    if encoder is not None:
+        encoder.close()
     done = rb.completed
     if len(done) != len(prompts) or n_tok != len(done) * n_new or any(
             len(r.generated) != n_new for r in done):
@@ -1477,6 +1583,13 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
          "prefills": timer.calls["prefill"],
          "prefill_s": timer.secs["prefill"],
          "prefill_tokens_per_s": sum(prompts) / timer.secs["prefill"],
+         **({"prefill_positions_per_s": (sum(prompts) + patches
+                                         * len(prompts))
+             / timer.secs["prefill"]} if patches else {}),
+         **({"encoder_ms_per_request": 1e3 * statistics.mean(encoder.secs),
+             "encoder_calls": len(encoder.secs),
+             "encoder_frames_per_s": frames * len(encoder.secs)
+             / sum(encoder.secs)} if audio else {}),
          "decode_s": timer.secs["decode"],
          "decode_tokens_per_s": (n_tok - len(done)) / timer.secs["decode"],
          "decode_step_ms": 1e3 * timer.secs["decode"] / steps,
@@ -1491,12 +1604,12 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
     # batch 1
     routes = RouteTap()
     n_moe = sum(f == "moe" for _, f in kinds)
-    differ, batch1, drops, by_layer = [], {}, {}, {}
+    differ, batch1_first, drops, by_layer = [], {}, {}, {}
     try:
         for r in done:
             prompt = torch.tensor(r.prompt, dtype=torch.int32, device=dev)
             if generate_in_slots(model, params, prompt, n_new, SERVE_SLOTS,
-                                 max_seq) != r.generated:
+                                 max_seq, inputs[r.id]) != r.generated:
                 differ.append(r.id)
             calls = routes.take()
             by_layer[r.id] = [dropped_slots(t, cfg) for t in calls[:n_moe]]
@@ -1505,10 +1618,11 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
             if len(calls) != n_moe * n_new or late:
                 raise AssertionError(f"{label}: {len(calls)} routings, "
                                      f"{late} slots dropped in decode steps")
-            alone = greedy_generate(model, params, {"tokens": prompt[None]},
-                                    n_new, max_seq=max_seq)
+            alone = greedy_generate(model, params, {
+                "tokens": prompt[None], **inputs[r.id]}, n_new,
+                max_seq=max_seq)
             routes.take()
-            batch1[r.id] = next((k for k, (a, b) in enumerate(zip(
+            batch1_first[r.id] = next((k for k, (a, b) in enumerate(zip(
                 alone[0].tolist(), r.generated)) if a != b), None)
     finally:
         routes.close()
@@ -1521,8 +1635,8 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new):
              "dropped_slots_by_moe_layer": {
                  done[-1].id: by_layer[done[-1].id]},
              "dropped_slots_in_decode_steps": 0} if n_moe else {}),
-         "batch1_equal": sum(v is None for v in batch1.values()),
-         "batch1_first_difference": {k: v for k, v in batch1.items()
+         "batch1_equal": sum(v is None for v in batch1_first.values()),
+         "batch1_first_difference": {k: v for k, v in batch1_first.items()
                                      if v is not None}})
     if differ:
         raise AssertionError(f"{label}: requests {differ} differ from greedy "
@@ -1546,6 +1660,71 @@ def serve_moe_and_hybrid(dev):
                                     JAMBA_NEW_TOKENS)
     free_card()
     return launches["selective_scan"], inputs
+
+
+def serve_vlm_and_audio(dev):
+    """Phases 5f-5g: internvl2-76b at full width, 8 layers, each request
+    with its 256 patches; whisper-medium at full size, each request with
+    AUDIO_FRAMES frames through the encoder.  Neither launches a kernel
+    of the port (``serve_routed`` holds the counts to none)."""
+    serve_routed(dev, "vlm_serve", VLM_ARCH, VLM_CUTS, VLM_PROMPTS,
+                 VLM_NEW_TOKENS, max_seq=VLM_MAX_SEQ)
+    serve_routed(dev, "audio_serve", AUDIO_ARCH, {}, AUDIO_PROMPTS,
+                 AUDIO_NEW_TOKENS, max_seq=AUDIO_MAX_SEQ,
+                 frames=AUDIO_FRAMES)
+    free_card()
+
+
+def train_audio(dev):
+    """Phase 15d: whisper-medium at full size, bf16, AUDIO_TRAIN_STEPS
+    steps of the copy task at ``make_batch_for``'s audio shapes for
+    AUDIO_TRAIN_SHAPE (frames [8, 1024, 1024], decoder tokens [8, 128])
+    with ``remat="full"``: finite losses that fall; step time, frames and
+    tokens a second, and peak memory beside the memory reckoned before
+    the run (bf16 parameters and grads, the float32 AdamW state and its
+    new copy, bf16 and float32 logits, each layer's saved input)."""
+    cfg = get_config(AUDIO_ARCH)
+    n = cfg.param_count()
+    b, f = AUDIO_TRAIN_SHAPE.global_batch, AUDIO_TRAIN_SHAPE.seq_len
+    sd = max(f // 8, 8)
+    reckon = {"params_gb": 2 * n / 1e9, "grads_gb": 2 * n / 1e9,
+              "adamw_state_and_update_gb": 2 * 8 * n / 1e9,
+              "logits_gb": (2 + 4) * b * sd * cfg.vocab_size / 1e9,
+              "layer_inputs_gb": 2 * cfg.d_model * b * (
+                  f * cfg.encoder_layers + sd * cfg.n_layers) / 1e9}
+    reckon["total_gb"] = sum(reckon.values())
+    log({"phase": "train_audio", "arch": cfg.name,
+         "memory_before_init": free_card(), "reckoned": reckon})
+    model = build_model(cfg, dev)
+    params = model.init_params(seed=0)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2,
+                       total_steps=AUDIO_TRAIN_STEPS)
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg, TrainStepConfig(remat="full"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for i in range(AUDIO_TRAIN_STEPS):
+        batch = make_batch_for(cfg, AUDIO_TRAIN_SHAPE, i, task="copy",
+                               device=dev)
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))               # synchronises
+        secs.append(time.perf_counter() - t0)
+    warm = statistics.median(secs[1:])
+    log({"phase": "train_audio", "arch": cfg.name, "dtype": cfg.dtype,
+         "layers": [cfg.encoder_layers, cfg.n_layers], "cut": "none",
+         "params": sum(p.numel() for p in params.parameters()),
+         "frames": [b, f, cfg.d_model], "tokens": [b, sd], "remat": "full",
+         "steps": AUDIO_TRAIN_STEPS, "first_step_s": secs[0],
+         "step_s": warm, "frames_per_s": b * f / warm,
+         "tokens_per_s": b * sd / warm,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "losses": losses})
+    half = AUDIO_TRAIN_STEPS // 2
+    if not all(np.isfinite(losses)) or not (
+            statistics.mean(losses[half:]) < statistics.mean(losses[:half])):
+        raise AssertionError(f"train_audio: losses {losses}")
 
 
 def train_moe(dev):
@@ -2639,6 +2818,9 @@ def run(dev) -> int:
     # ---- 5c.-5e. the moe and hybrid families ------------------------
     jamba_launches, jamba_inputs = serve_moe_and_hybrid(dev)
 
+    # ---- 5f.-5g. the vlm and audio families --------------------------
+    serve_vlm_and_audio(dev)
+
     # ---- 15.-16. training (before the fleet phases, after which the
     # profiler records none of this process's kernels), and 6b ---------
     scan_child_ms = train_dense_child()
@@ -2663,6 +2845,7 @@ def run(dev) -> int:
     table[-1]["launches"] += train_launches
     train_consistency(dev)
     train_moe(dev)
+    train_audio(dev)
 
     # ---- 8.-11. the fleet engine -------------------------------------
     table.append(fleet(dev))

@@ -1,10 +1,11 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
 [...] [--device cpu]``.
 
-Runs a dense, moe, hybrid or ssm config end to end (smoke configs by default, in
+Runs any config of the repo end to end (smoke configs by default, in
 float32; ``--full`` for the published widths) on the card, or on the
-CPU with ``--device cpu``.  ``--rules`` is parsed and not used, as in
-the reference (its sharding rules wait for a mesh).
+CPU with ``--device cpu``; ``make_batch_for`` gives vlm batches their
+patches and audio batches their frames.  ``--rules`` is parsed and not
+used, as in the reference (its sharding rules wait for a mesh).
 """
 from __future__ import annotations
 

@@ -2,18 +2,22 @@
 
 ``build_model(cfg, device)`` returns a :class:`Model` exposing:
 
-    init_params(seed)              -> params (a ``transformer.Transformer``)
+    init_params(seed)              -> params (a ``transformer.Transformer``,
+                                      or an ``encdec.EncDec`` for audio)
     params_from_reference(tree)    -> params carried over from the JAX
                                       reference's parameter tree
     param_shapes()                 -> the parameter tree as meta tensors
     apply(params, batch, mode, cache=None, remat="full")
                                    -> (logits, new_cache)
-    init_cache(batch, max_seq=None)
+    init_cache(batch, max_seq=None, n_frames=None)
 
 ``params`` plays the part of the reference's parameter pytree: an
 ``nn.Module`` that holds the weights on the model's device, trainable.
-The port runs the dense, moe, hybrid and ssm families; the vlm and
-audio families raise ``NotImplementedError`` (ROADMAP queue 1 item 4).
+Every family of the repo runs: the decoder-only ones through
+``transformer.py`` (a vlm batch adds ``patches``), the audio one through
+``encdec.py`` (a train or prefill batch adds ``frames``).  The modality
+frontends are stubs, as in the reference: patches and frames arrive as
+precomputed embeddings.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .params import init_from_specs, params_from_reference, shapes_from_specs
+
+WHISPER_CROSS_FRAMES = 1500      # 30 s window after conv downsampling
 
 
 @dataclass
@@ -37,44 +43,64 @@ class Model:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.dtype)
 
+    @property
+    def _audio(self) -> bool:
+        return self.cfg.family == "audio"
+
     # ------------------------------------------------------------ params
-    def init_params(self, seed: int) -> transformer.Transformer:
+    def _specs(self) -> Dict:
+        if self._audio:
+            return encdec.param_specs(self.cfg)
+        return transformer.param_specs(self.cfg)
+
+    def _module(self, tree: Dict):
+        cls = encdec.EncDec if self._audio else transformer.Transformer
+        return cls(self.cfg, tree)
+
+    def init_params(self, seed: int):
         """Random weights from a ``torch.Generator`` seeded with ``seed``
         on the model's device."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        tree = init_from_specs(transformer.param_specs(self.cfg), gen,
-                               self.dtype)
-        return transformer.Transformer(self.cfg, tree)
+        return self._module(init_from_specs(self._specs(), gen, self.dtype))
 
-    def params_from_reference(self, tree: Mapping
-                              ) -> transformer.Transformer:
+    def params_from_reference(self, tree: Mapping):
         """The JAX reference's parameters (numpy arrays in its tree
         layout) on the model's device."""
-        cfg = self.cfg
-        return transformer.Transformer(cfg, params_from_reference(
-            tree, transformer.param_specs(cfg), cfg.scan_period,
-            self.dtype, self.device))
+        return self._module(params_from_reference(
+            tree, self._specs(), self.cfg.scan_period, self.dtype,
+            self.device))
 
     def param_shapes(self) -> Dict:
         """The parameter tree as meta tensors (no allocation)."""
-        return shapes_from_specs(transformer.param_specs(self.cfg),
-                                 self.dtype)
+        return shapes_from_specs(self._specs(), self.dtype)
 
     # ------------------------------------------------------------ apply
-    def apply(self, params: transformer.Transformer, batch: Dict, *,
-              mode: str = "train", cache: Optional[Dict] = None,
-              remat: str = "full"):
-        if set(batch) != {"tokens"}:
-            raise NotImplementedError(
-                f"inputs {sorted(batch)}: the port takes tokens only "
-                "(ROADMAP queue 1 item 4)")
-        return params(batch["tokens"], cache=cache, mode=mode, remat=remat)
+    def apply(self, params, batch: Dict, *, mode: str = "train",
+              cache: Optional[Dict] = None, remat: str = "full"):
+        """``batch["tokens"]``, with ``frames`` (audio) or ``patches``
+        (any other family) where the batch has them."""
+        if self._audio:
+            extra = {"frames": batch.get("frames")}
+        else:
+            extra = {"patches": batch.get("patches")}
+        return params(batch["tokens"], cache=cache, mode=mode, remat=remat,
+                      **extra)
 
     # ------------------------------------------------------------ cache
-    def init_cache(self, batch: int, max_seq: Optional[int] = None) -> Dict:
+    def init_cache(self, batch: int, max_seq: Optional[int] = None,
+                   n_frames: Optional[int] = None) -> Dict:
         """An empty decode cache.  ``max_seq`` (the KV rows) is required
         only when the model has attention layers: a Mamba cache does not
-        grow with the sequence."""
+        grow with the sequence.  An audio cache holds ``n_frames`` cross
+        rows (default: the reference's WHISPER_CROSS_FRAMES); decode
+        attends to all of them, so they must be the prefill's frames."""
+        if self._audio:
+            if max_seq is None:
+                raise ValueError(f"{self.cfg.name}: an attention cache "
+                                 "needs max_seq")
+            return encdec.init_cache(
+                self.cfg, batch, max_seq, n_frames or WHISPER_CROSS_FRAMES,
+                self.dtype, self.device)
         return transformer.init_cache(self.cfg, batch, max_seq, self.dtype,
                                       self.device)
 
@@ -82,5 +108,6 @@ class Model:
 def build_model(cfg: ModelConfig, device=None) -> Model:
     """The model of ``cfg`` on ``device``: ``None`` means the card and
     raises without one; ``"cpu"`` runs the kernels' plain versions."""
-    transformer.check_supported(cfg)
+    if cfg.family != "audio":
+        transformer.check_supported(cfg)
     return Model(cfg, resolve_device(device))

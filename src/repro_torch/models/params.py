@@ -107,7 +107,9 @@ def params_from_reference(tree: Mapping[str, Any], specs: Dict,
     ``tree`` is the reference's layout: block leaves under
     ``tree["blocks"]["L{j}"]`` stacked along a leading ``n_periods``
     axis, so layer ``i`` is entry ``i // period`` of sublayer
-    ``i % period``.  ``specs`` is the port's spec tree (one entry per
+    ``i % period``; the encoder-decoder's ``enc_blocks`` and
+    ``dec_blocks`` leaves are stacked along a leading layer axis with no
+    period key.  ``specs`` is the port's spec tree (one entry per
     layer).  Each leaf keeps the reference's layout (``in_proj [d,
     2*di]`` and so on) and is cast to ``dtype`` (``A_log`` and ``D`` to
     float32).  Every array of ``tree`` must be used exactly once: a
@@ -130,6 +132,8 @@ def params_from_reference(tree: Mapping[str, Any], specs: Dict,
             layer, name = path[1], path[2]
             key = ("blocks", f"L{layer % period}", name)
             row = layer // period
+        elif path[0] in ("enc_blocks", "dec_blocks"):
+            key, row = (path[0], path[2]), path[1]
         else:
             key, row = path, None
         if key not in avail:

@@ -1,6 +1,7 @@
 """Decoder-only LM covering the dense family (attention + dense FFN,
 GQA/MQA, optional qk-norm), the moe family (routed-expert FFNs on every
-layer or every other one, with an optional shared expert), the hybrid
+layer or every other one, with an optional shared expert), the vlm
+family (a dense decoder with early-fused patch embeddings), the hybrid
 family (Jamba: Mamba and attention layers in one stack, periodic MoE)
 and the attention-free ssm family (a stack of Mamba-1 blocks).
 
@@ -15,8 +16,7 @@ one code path:
   prefill  — train-like forward that also emits a KV/SSM cache;
   decode   — single-token step against a fixed-size cache.
 
-The vlm and audio families raise ``NotImplementedError``: they are
-ROADMAP queue 1 item 4.
+The audio family (an encoder-decoder) is ``encdec.py``.
 """
 from __future__ import annotations
 
@@ -34,19 +34,16 @@ from .moe import MoEParams, moe_ffn
 
 MODES = ("train", "prefill", "decode")
 REMATS = ("full", "dots", "none")
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a decoder-only model of tokens: the dense,
-    moe, hybrid or ssm family, with no patch embeddings and no
-    encoder."""
-    if cfg.family not in FAMILIES or cfg.vision_patches \
-            or cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the port runs the dense, moe, "
-            "hybrid and ssm families; vision and audio models are "
-            "ROADMAP queue 1 item 4")
+    """Raise unless ``cfg`` is a decoder-only family.  As in the
+    reference, any of them takes patch embeddings, and ``encoder_layers``
+    outside the audio family builds no encoder."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         f"decoder-only one {FAMILIES}")
 
 
 # ----------------------------------------------------------------------
@@ -330,10 +327,13 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, i, p)
                                     for i, p in enumerate(params["blocks"]))
 
-    def forward(self, tokens: torch.Tensor, *, cache: Optional[Dict] = None,
-                mode: str = "train", remat: str = "full"
+    def forward(self, tokens: torch.Tensor, *,
+                patches: Optional[torch.Tensor] = None,
+                cache: Optional[Dict] = None, mode: str = "train",
+                remat: str = "full"
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-        """tokens int[B, S] -> (logits [B, S, V], new_cache or None).
+        """tokens int[B, S], and optionally patches [B, P, d] early-fused
+        before them -> (logits [B, P + S, V], new_cache or None).
 
         ``remat`` applies where autograd records: ``"full"`` recomputes
         each layer in the backward pass, ``"dots"`` keeps its matrix
@@ -347,6 +347,9 @@ class Transformer(nn.Module):
         cfg = self.cfg
         b, s = tokens.shape
         h = self.embed[tokens]
+        if patches is not None:
+            h = torch.cat([patches.to(h.dtype), h], dim=1)
+            s = h.shape[1]
         if mode == "decode":
             positions = cache["index"][:, None]
         else:

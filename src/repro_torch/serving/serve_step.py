@@ -12,7 +12,8 @@ import torch.nn.functional as F
 
 from ..models import Model
 
-#: the cache leaves that hold one row per position (attention's KV cache)
+#: the cache leaves that hold one row per position (attention's KV cache);
+#: an encoder-decoder's cross rows (``ck``, ``cv``) hold one per frame
 KV_LEAVES = ("k", "v", "k_scale", "v_scale")
 
 
@@ -37,10 +38,14 @@ def make_decode_step(model: Model) -> Callable:
 
 def pad_kv(cache: Dict, max_seq: int) -> Dict:
     """The cache with its KV leaves padded with zeros to ``max_seq`` rows;
-    Mamba leaves (``conv``, ``ssm``) do not grow and stay as they are."""
+    Mamba leaves (``conv``, ``ssm``) do not grow, and cross-attention
+    leaves (``ck``, ``cv``) are attended whole: both stay as they are."""
     def pad(name, leaf):
         if name not in KV_LEAVES:
             return leaf
+        if leaf.shape[1] > max_seq:
+            raise ValueError(f"{leaf.shape[1]} cache rows exceed max_seq "
+                             f"{max_seq}")
         return F.pad(leaf, (0, 0, 0, 0, 0, max_seq - leaf.shape[1]))
     return {"blocks": [{k: pad(k, v) for k, v in blk.items()}
                        for blk in cache["blocks"]],
@@ -51,14 +56,20 @@ def greedy_generate(model: Model, params, batch, max_new_tokens: int,
                     max_seq: Optional[int] = None) -> torch.Tensor:
     """Prefill + greedy decode loop: int32[B, max_new_tokens].
 
-    The KV cache is padded to ``max_seq`` (default: prompt length +
+    ``batch`` is a prefill batch: tokens, with ``patches`` or ``frames``
+    where the model takes them.  The KV cache is padded to ``max_seq``
+    (default: the prefill's positions, patches included, +
     ``max_new_tokens``), so every decode step has the same shapes.  Only
     the KV leaves are padded: the reference's shape test also pads a
     Mamba ``conv`` cache whenever the prompt has ``conv_width - 1``
-    tokens.  One prefill gives both the cache and the first token (the
-    reference runs it twice; the results are equal).
+    tokens, and an audio ``ck``/``cv`` whenever the frames number the
+    prompt's tokens; its default leaves out a vlm prompt's patches.  One
+    prefill gives both the cache and the first token (the reference runs
+    it twice; the results are equal).
     """
     sp = batch["tokens"].shape[1]
+    if "patches" in batch:
+        sp += batch["patches"].shape[1]
     max_seq = max_seq or (sp + max_new_tokens)
     first_logits, cache = make_prefill_step(model)(params, batch)
     cache = pad_kv(cache, max_seq)

@@ -48,11 +48,16 @@ def named_params(params) -> Dict[str, torch.Tensor]:
     return dict(params)
 
 
+#: the parameter names whose leaves the reference stacks along a leading
+#: axis (periods of the decoder-only stack; the encoder-decoder's layers)
+STACKED = ("blocks.", "enc_blocks.", "dec_blocks.")
+
+
 def reference_ndim(name: str, p: torch.Tensor) -> int:
     """The rank of parameter ``name`` in the reference's tree, where every
-    block leaf carries a leading ``n_periods`` stacking axis: the port's
-    rank, plus one under ``blocks``."""
-    return p.ndim + name.startswith("blocks.")
+    block leaf carries a leading stacking axis: the port's rank, plus one
+    under ``blocks``, ``enc_blocks`` and ``dec_blocks``."""
+    return p.ndim + name.startswith(STACKED)
 
 
 def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -99,7 +104,8 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState, params,
 
     Weight decay applies to a leaf of rank >= 2 in the reference's tree
     (:func:`reference_ndim`): every block leaf, norms and biases
-    included, and the top-level matrices, but not ``final_norm``."""
+    included, and the top-level matrices, but not the top-level norms
+    (``final_norm``, ``enc_final_norm``)."""
     step = state.step + 1
     lr = cosine_lr(cfg, step)
     new_ef = state.ef

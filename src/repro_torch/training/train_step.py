@@ -28,6 +28,8 @@ def make_loss_fn(model: Model, tcfg: TrainStepConfig) -> Callable:
     def loss_fn(params, batch) -> Tuple[torch.Tensor, Dict]:
         logits, _ = model.apply(params, batch, mode="train", remat=tcfg.remat)
         tokens = batch["tokens"]
+        if model.cfg.family == "vlm":       # no targets at patch positions
+            logits = logits[:, model.cfg.vision_patches:, :]
         targets = tokens[:, 1:].long()
         lg = logits[:, :-1, :].to(torch.float32)
         lse = torch.logsumexp(lg, dim=-1)

@@ -269,18 +269,47 @@ def test_without_gpu_the_model_raises():
         ops.resolve_device("cuda:0")
 
 
-# The moe and hybrid families run since they were ported: their cases
-# give a MoE and a hybrid model patch embeddings or an encoder, which
-# the port refuses in any family until vlm and audio are ported.
+# Named for the refusal it held until the vlm and audio families were
+# ported; each case now runs as the reference runs it: a MoE model with
+# patch embeddings (with no slot dropped, and at the config's own
+# capacity factor, where slots drop), a hybrid one whose
+# ``encoder_layers`` build no encoder outside the audio family, Whisper
+# with frames and InternVL2 with patches.  Train logits within 1e-4 of
+# the reference's.
 @pytest.mark.parametrize("arch,over", [
-    ("qwen3-moe-30b-a3b", {"vision_patches": 4}),
+    ("qwen3-moe-30b-a3b", {"vision_patches": 4, "capacity_factor": 16.0}),
     ("jamba-1.5-large-398b", {"encoder_layers": 2}),
-    ("whisper-medium", {}), ("internvl2-76b", {})],
+    ("whisper-medium", {}), ("internvl2-76b", {}),
+    ("qwen3-moe-30b-a3b", {"vision_patches": 4})],
     ids=["qwen3-moe-30b-a3b", "jamba-1.5-large-398b", "whisper-medium",
-         "internvl2-76b"])
+         "internvl2-76b", "qwen3-moe-30b-a3b-capacity-drops"])
 def test_other_families_raise(arch, over):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(arch, smoke=True).replace(**over), "cpu")
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget
+    from repro.models import build_model as jbuild
+
+    jm = jbuild(jget(arch, smoke=True).replace(dtype="float32", **over))
+    jp = jm.init_params(jax.random.PRNGKey(2))
+    model = build_model(get_config(arch, smoke=True).replace(
+        dtype="float32", **over), "cpu")
+    params = model.params_from_reference(jax.tree.map(np.asarray, jp))
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    batch = {"tokens": _tokens(2, 12, cfg.vocab_size, seed=4)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((2, 24, cfg.d_model))
+    elif cfg.vision_patches:
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.vision_patches, cfg.d_model))
+    batch = {k: v.astype(np.float32 if k != "tokens" else np.int32)
+             for k, v in batch.items()}
+    want, _ = jm.apply(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        got, _ = model.apply(params, {k: torch.from_numpy(v)
+                                      for k, v in batch.items()})
+    assert got.shape == want.shape
+    _close(got, want)
 
 
 def test_cpu_serving_launches_no_cuda_kernel(ref):

@@ -244,13 +244,17 @@ def test_init_params_draws_expert_leaves_by_fan_in(monkeypatch):
 
 
 def test_check_supported_takes_moe_and_hybrid():
-    """build_model runs the moe and hybrid families; vlm and audio still
-    raise, naming ROADMAP queue 1 item 4."""
+    """build_model runs the moe and hybrid families, and since they were
+    ported the vlm and audio ones (a ``Transformer`` and an ``EncDec``);
+    a family the repo does not have raises."""
     for arch in ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
                  "jamba-1.5-large-398b"):
         assert build_model(get_config(arch, smoke=True), "cpu").cfg.family \
             in ("moe", "hybrid")
-    for arch in ("internvl2-76b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 "
-                                                      "item 4"):
-            build_model(get_config(arch, smoke=True), "cpu")
+    for arch, cls in (("internvl2-76b", "Transformer"),
+                      ("whisper-medium", "EncDec")):
+        model = build_model(get_config(arch, smoke=True), "cpu")
+        assert type(model.init_params(0)).__name__ == cls
+    with pytest.raises(ValueError, match="decoder-only"):
+        build_model(get_config("smollm-360m", smoke=True).replace(
+            family="diffusion"), "cpu")

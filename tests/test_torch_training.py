@@ -362,6 +362,8 @@ def test_data_determinism(setup):
     assert torch.equal(a["tokens"], b["tokens"])
     c = synthetic_lm_batch(cfg, 4, 16, step=8, device="cpu")
     assert not torch.equal(a["tokens"], c["tokens"])
+    d = synthetic_lm_batch(cfg, 4, 16, step=7, seed=18, device="cpu")
+    assert not torch.equal(a["tokens"], d["tokens"])
     copy = copy_task_batch(cfg, 2, 9, step=7, device="cpu")["tokens"]
     assert torch.equal(copy[:, :4], copy[:, 4:8])
     assert bool((copy[:, :8] >= 2).all()) and bool((copy[:, 8] == 1).all())
@@ -369,9 +371,12 @@ def test_data_determinism(setup):
     shape = ShapeSpec("t", 16, 4, "train")
     assert torch.equal(make_batch_for(cfg, shape, 7, device="cpu")["tokens"],
                        a["tokens"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_batch_for(get_config("whisper-medium", smoke=True), shape, 7,
-                       device="cpu")
+    # the audio family, refused until it was ported, takes frames and
+    # decoder tokens of max(s // 8, 8)
+    audio = make_batch_for(get_config("whisper-medium", smoke=True), shape,
+                           7, device="cpu")
+    assert audio["frames"].shape == (4, 16, 64)
+    assert audio["tokens"].shape == (4, 8)
 
 
 # ------------------------------------------------------------ serving
