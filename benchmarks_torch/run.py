@@ -15,8 +15,8 @@ seed for the DispatchContext/DispatchPlan path.
 ``--device`` is where the kernels and the fleet run: by default the card
 (a mode that needs it raises without one); ``--device cpu`` runs their
 plain PyTorch versions.  ``table1``, ``core`` and ``fig_generator`` are
-host only.  ``MODULES`` has no ``roofline``: it needs the dry-run
-records and peak rates that the port does not have yet.
+host only; ``roofline`` reads the dry-run records
+(``python -m repro_torch.launch.dryrun``) and runs nothing on a device.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ import time
 import traceback
 
 MODULES = ["table1", "table2", "fig_generator", "kernels", "dispatch",
-           "core", "fleet"]
+           "core", "roofline", "fleet"]
 
 
 def main() -> None:
@@ -128,6 +128,9 @@ def main() -> None:
             elif name == "core":
                 from . import bench_core
                 bench_core.run(args.out)
+            elif name == "roofline":
+                from . import roofline
+                roofline.run(args.out)
             elif name == "fleet":
                 from . import bench_fleet
                 bench_fleet.run(args.out, device=args.device)

@@ -170,7 +170,21 @@ and drives the simulator's main path on the card:
 15d. (after 15c) whisper-medium at full size, bf16, 10 steps of the copy
    task at ``make_batch_for``'s audio shapes for 1024 frames x batch 8
    (frames [8, 1024, 1024], decoder tokens [8, 128]), ``remat="full"``:
-   the same checks and numbers.
+   the same checks and numbers;
+17. (last) the dry-run against the card.  A child process
+   (``chip_smoke.py --dryrun-child``, CPU only: a fake world of ranks and
+   ``meta`` tensors, no kernel launched) dry-runs (a) a qwen3-1.7b train
+   step at full size (28 layers, bf16) at 4 x 4096 tokens, 1
+   micro-batch, ``remat="full"``, on a 1 x 1 mesh, and (b) phase 5's two
+   falcon-mamba-7b prefills (4 x 512, 4 x 1000) with the scan as
+   ``"stub"`` and as ``"ref"``; meanwhile the smoke runs 2 warm and 5
+   timed steps of (a) on the card from random weights of a seeded
+   generator.  It logs the median step, the peak memory, the dry-run's
+   ``compute_s``, ``memory_s``, bound and per-device bytes, and each
+   ratio, and fails if the measured step is shorter than ``compute_s``
+   or the predicted bytes fall under half the measured peak; for (b) it
+   logs both bounds beside phase 5's measured prefill times and fails if
+   a prefill took less than the stub's ``compute_s``.
 
 Phases 15-16 run right after phase 7: once the fleet phases have run,
 the profiler records none of this process's kernels (phase 11 profiles
@@ -361,6 +375,14 @@ STUDY_WL = dict(mean_interarrival_s=45.0, duration_median_s=1300.0,
 # numpy twins of phases 2-3, kept for the fleet phases:
 # (phase, dispatcher) -> (Recorder, summary, wall seconds)
 TWINS = {}
+# phase 5's measured prefills, kept for phase 17: (batch, prompt) -> s
+MAMBA_PREFILL_S = {}
+# phase 17: a qwen3-1.7b train step on the card against its dry-run
+DRYRUN_CHILD_FLAG = "--dryrun-child"
+CARD_STEP_CHILD_FLAG = "--card-step-child"
+DRY_ARCH = "qwen3-1.7b"
+DRY_SHAPE = ShapeSpec("train_4x4096", 4096, 4, "train")
+DRY_WARM, DRY_STEPS = 2, 5
 
 
 def log(obj) -> None:
@@ -878,6 +900,7 @@ def serve_mamba(dev):
              for k in before}
         b, n = prompts.shape
         prefill_s = d["secs"]["prefill"]
+        MAMBA_PREFILL_S[(b, n)] = prefill_s
         decode_tokens = d["tokens"]["decode"]
         decode_s = generate_s - prefill_s
         log({"phase": "mamba", "batch": b, "prompt_len": n,
@@ -2628,6 +2651,151 @@ def bench_modes(dev):
         lambda a: (a[5],) + tuple(a[0].shape) + (a[2].shape[0],))
     return launches
 
+# ----------------------------------------------------------------------
+# 17. the dry-run against the card
+# ----------------------------------------------------------------------
+def dryrun_child() -> int:
+    """Phase 17's dry-runs, in a process of their own (the dry-run makes
+    a fake world of ranks; it computes nothing and launches no kernel):
+    one ``DRYRUN`` JSON line of records."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {"train": dryrun.run_cell(DRY_ARCH, DRY_SHAPE, "1x1", "baseline",
+                                    microbatches=1, remat="full",
+                                    mesh=mesh)}
+    for n in SERVE_PROMPTS:
+        shape = ShapeSpec(f"prefill_{SERVE_SLOTS}x{n}", n, SERVE_SLOTS,
+                          "prefill")
+        for scan in ("stub", "ref"):
+            out[f"{n}_{scan}"] = dryrun.run_cell(
+                MAMBA_ARCH, shape, "1x1", "baseline", scan_impl=scan,
+                mesh=mesh)
+    print("DRYRUN " + json.dumps(out), flush=True)
+    return 0
+
+
+def card_step_child(dev) -> int:
+    """Phase 17a's steps on the card, in a fresh process whose allocator
+    grows its segments in place (the step's float32 logits and their
+    gradients, 10 GB each, leave no room for a fragmented cache): one
+    ``CARDSTEP`` JSON line of step seconds, losses and peak bytes."""
+    cfg = get_config(DRY_ARCH)
+    b, n = DRY_SHAPE.global_batch, DRY_SHAPE.seq_len
+    model = build_model(cfg, dev)
+    params = model.init_params(seed=0)
+    ocfg = AdamWConfig()
+    opt = adamw_init(params, ocfg)
+    step = make_train_step(model, ocfg,
+                           TrainStepConfig(microbatches=1, remat="full"))
+    batch = copy_task_batch(cfg, b, n, 0, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for _ in range(DRY_WARM + DRY_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))               # synchronises
+        secs.append(time.perf_counter() - t0)
+    print("CARDSTEP " + json.dumps({
+        "secs": secs, "losses": losses,
+        "peak": torch.cuda.max_memory_allocated()}), flush=True)
+    return 0
+
+
+def child_line(proc, tag, timeout):
+    """The JSON after ``tag`` in a child's output; raises if it failed."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} child: {err[-3000:]}")
+    return json.loads([ln for ln in out.splitlines()
+                       if ln.startswith(tag + " ")][0][len(tag) + 1:])
+
+
+def dryrun_vs_card(dev) -> None:
+    """Phase 17: the dry-run's bound and memory of a full-size qwen3-1.7b
+    train step against the step on the card, and its falcon-mamba-7b
+    prefill bounds against phase 5's measured prefills."""
+    t_phase = time.perf_counter()
+    cfg = get_config(DRY_ARCH)
+    b, n = DRY_SHAPE.global_batch, DRY_SHAPE.seq_len
+    params_n = cfg.param_count()
+    reckon = {"params_gb": 2 * params_n / 1e9,
+              "grads_gb": 2 * params_n / 1e9,
+              "adamw_state_gb": 8 * params_n / 1e9,
+              "adamw_new_state_gb": 8 * params_n / 1e9,
+              "logits_gb": (2 + 4) * b * n * cfg.vocab_size / 1e9}
+    reckon["total_gb"] = sum(reckon.values())
+    log({"phase": "dryrun_card", "arch": cfg.name,
+         "memory_before_init": free_card(), "reckoned": reckon})
+    me = os.path.abspath(__file__)
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    child = subprocess.Popen([sys.executable, me, DRYRUN_CHILD_FLAG],
+                             **pipes)
+    card = subprocess.Popen(
+        [sys.executable, me, CARD_STEP_CHILD_FLAG], **pipes,
+        env=dict(os.environ,
+                 PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    try:
+        stepped = child_line(card, "CARDSTEP", 600)
+        recs = child_line(child, "DRYRUN", 600)
+    finally:
+        for proc in (child, card):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs, losses, peak = stepped["secs"], stepped["losses"], stepped["peak"]
+    for key, rec in recs.items():
+        if not rec["ok"]:
+            raise AssertionError(f"dry-run {key}: {rec.get('traceback')}")
+    step_s = statistics.median(secs[DRY_WARM:])
+    rec = recs["train"]
+    ro, mem = rec["roofline"], rec["memory"]
+    log({"phase": "dryrun_card", "arch": cfg.name, "dtype": cfg.dtype,
+         "n_layers": cfg.n_layers, "batch": b, "seq": n, "microbatches": 1,
+         "remat": "full", "steps": DRY_STEPS, "step_s": step_s,
+         "steps_s": secs, "losses": losses,
+         "peak_memory_bytes": peak, "dry_compute_s": ro["compute_s"],
+         "dry_memory_s": ro["memory_s"], "dry_bound_s":
+         ro["bound_step_time_s"], "dry_dominant": ro["dominant"],
+         "dry_flops": rec["hlo"]["flops_per_device"],
+         "dry_bytes": rec["hlo"]["bytes_per_device"],
+         "dry_per_device_bytes": mem["per_device_bytes"],
+         "dry_memory": mem, "dry_trace_s": rec["compile_s"],
+         "step_over_compute_s": step_s / ro["compute_s"],
+         "step_over_bound_s": step_s / ro["bound_step_time_s"],
+         "predicted_over_peak_bytes": mem["per_device_bytes"] / peak})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dryrun_card: losses {losses}")
+    if step_s < ro["compute_s"]:
+        raise AssertionError(f"dryrun_card: a step took {step_s} s, under "
+                             f"the dry-run's compute_s {ro['compute_s']}")
+    if mem["per_device_bytes"] < peak / 2:
+        raise AssertionError(f"dryrun_card: predicted "
+                             f"{mem['per_device_bytes']} bytes, under half "
+                             f"the measured peak {peak}")
+    for n in SERVE_PROMPTS:
+        measured = MAMBA_PREFILL_S[(SERVE_SLOTS, n)]
+        stub = recs[f"{n}_stub"]["roofline"]
+        plain = recs[f"{n}_ref"]["roofline"]
+        log({"phase": "dryrun_card", "arch": MAMBA_ARCH,
+             "prefill": [SERVE_SLOTS, n], "measured_prefill_s": measured,
+             "stub_compute_s": stub["compute_s"],
+             "stub_memory_s": stub["memory_s"],
+             "stub_bound_s": stub["bound_step_time_s"],
+             "ref_compute_s": plain["compute_s"],
+             "ref_memory_s": plain["memory_s"],
+             "ref_bound_s": plain["bound_step_time_s"],
+             "measured_over_stub_bound":
+             measured / stub["bound_step_time_s"],
+             "measured_over_ref_bound":
+             measured / plain["bound_step_time_s"]})
+        if measured < stub["compute_s"]:
+            raise AssertionError(f"dryrun_card: prefill {SERVE_SLOTS}x{n} "
+                                 f"took {measured} s, under the stub's "
+                                 f"compute_s {stub['compute_s']}")
+    log({"phase": "dryrun_card", "wall_s": time.perf_counter() - t_phase})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2635,6 +2803,10 @@ def main() -> int:
         return 2
     if sys.argv[1:] == [TRAIN_CHILD_FLAG]:
         return train_child(torch.device("cuda"))
+    if sys.argv[1:] == [DRYRUN_CHILD_FLAG]:
+        return dryrun_child()
+    if sys.argv[1:] == [CARD_STEP_CHILD_FLAG]:
+        return card_step_child(torch.device("cuda"))
     return run(torch.device("cuda"))
 
 
@@ -2859,6 +3031,9 @@ def run(dev) -> int:
     bench_launches = bench_modes(dev)
     for row in table:
         row["launches"] += bench_launches.get(row["name"], 0)
+
+    # ---- 17. the dry-run against the card ----------------------------
+    dryrun_vs_card(dev)
     log({"phase": "bench_metadata", **bench_metadata()})
 
     log({"phase": "done", "total_s": time.perf_counter() - t_start})

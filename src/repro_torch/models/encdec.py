@@ -20,8 +20,9 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from .layers import attention, mlp, rms_norm
-from .transformer import MODES, REMATS, _remat
+from ..sharding import shard, splittable, weight_for
+from .layers import attention, lookup, mlp, rms_norm
+from .transformer import MODES, REMATS, _remat, write_rows
 
 
 def sinusoid(length: int, d: int, dtype: torch.dtype, device
@@ -105,6 +106,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, n_frames: int,
                                  device=device)}
 
 
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """The cache's logical axes, one entry of ``blocks`` per layer."""
+    ax = ("cache_batch", "cache_seq", "cache_heads", None)
+    return {"blocks": [{"k": ax, "v": ax, "ck": ax, "cv": ax}
+                       for _ in range(cfg.n_layers)],
+            "index": ("cache_batch",)}
+
+
 # ---------------------------------------------------------------- blocks
 class _Layer(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Dict[str, torch.Tensor]
@@ -116,11 +125,13 @@ class _Layer(nn.Module):
 
     def _proj(self, x, w, heads):
         b, s, _ = x.shape
-        return (x @ w).reshape(b, s, heads, self.cfg.hd)
+        return splittable(x @ weight_for(x, w), -1, heads).reshape(
+            b, s, heads, self.cfg.hd)
 
     def _out(self, o, w):
         b, s = o.shape[:2]
-        return o.reshape(b, s, -1) @ w
+        o = splittable(o.reshape(b, s, -1), -1, o.shape[2])
+        return o @ weight_for(o, w)
 
     def _ffn(self, h):
         cfg = self.cfg
@@ -142,7 +153,8 @@ class EncBlock(_Layer):
         v = self._proj(x, self.wv, cfg.n_kv_heads)
         pos = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
         o = attention(q, k, v, pos, pos, causal=False)
-        return self._ffn(h + self._out(o, self.wo))
+        h = self._ffn(h + self._out(o, self.wo))
+        return shard(h, "batch", "seq", "embed_act")
 
 
 class DecBlock(_Layer):
@@ -165,10 +177,9 @@ class DecBlock(_Layer):
         if mode == "decode":
             # written in place at ``index``, as transformer.Block does
             kc, vc = cache_in["k"], cache_in["v"]
-            rows = torch.arange(b, device=h.device)
             idx = positions[:, 0].long()
-            kc[rows, idx] = k[:, 0]
-            vc[rows, idx] = v[:, 0]
+            write_rows(kc, idx, k[:, 0])
+            write_rows(vc, idx, v[:, 0])
             kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
                                   device=h.device).expand(b, kc.shape[1])
             o = attention(q, kc, vc, positions, kv_pos)
@@ -191,7 +202,8 @@ class DecBlock(_Layer):
         f = ck.shape[1]
         cpos = torch.arange(f, dtype=torch.int32, device=h.device).expand(b, f)
         o = attention(q, ck, cv, positions, cpos, causal=False)
-        return self._ffn(h + self._out(o, self.c_wo)), new_cache
+        h = self._ffn(h + self._out(o, self.c_wo))
+        return shard(h, "batch", "seq", "embed_act"), new_cache
 
 
 class EncDec(nn.Module):
@@ -218,6 +230,7 @@ class EncDec(nn.Module):
         h = frames.to(self.embed.dtype)
         h = h + sinusoid(h.shape[1], self.cfg.d_model, h.dtype,
                          h.device)[None]
+        h = shard(h, "batch", "seq", "embed_act")
         run = _remat(remat) if torch.is_grad_enabled() else None
         for block in self.enc_blocks:
             h = block(h) if run is None else run(block, h)
@@ -241,16 +254,17 @@ class EncDec(nn.Module):
         cfg = self.cfg
         b, s = tokens.shape
         enc_out = None if mode == "decode" else self.encode(frames, remat)
-        h = self.embed[tokens]
+        h = lookup(self.embed, tokens)
         if mode == "decode":
             positions = cache["index"][:, None]
             max_seq = cache["blocks"][0]["k"].shape[1]
             table = sinusoid(max_seq, cfg.d_model, h.dtype, h.device)
-            h = h + table[cache["index"].long()][:, None, :]
+            h = h + lookup(table, cache["index"].long())[:, None, :]
         else:
             positions = torch.arange(s, dtype=torch.int32,
                                      device=tokens.device).expand(b, s)
             h = h + sinusoid(s, cfg.d_model, h.dtype, h.device)[None]
+        h = shard(h, "batch", "seq", "embed_act")
         caches_in: List = cache["blocks"] if mode == "decode" \
             else [None] * len(self.dec_blocks)
         run = _remat(remat) if torch.is_grad_enabled() else None
@@ -262,8 +276,8 @@ class EncDec(nn.Module):
                 h, nc = run(block, h, cin, positions, enc_out, mode)
             caches_out.append(nc)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
-        logits = h @ (self.embed.t() if self.lm_head is None
-                      else self.lm_head)
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        logits = shard(h @ weight_for(h, head), "batch", "seq", "vocab")
 
         new_cache = None
         if mode == "prefill":

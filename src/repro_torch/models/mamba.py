@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding import local_shard, shard, weight_for
 
 
 class MambaCache(NamedTuple):
@@ -26,7 +27,21 @@ def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
                            b: torch.Tensor) -> torch.Tensor:
     """u: [B, T, di]; w: [di, cw]; left-padded causal depthwise conv,
     written as the reference's sum of shifted products (no cuDNN, so no
-    TF32 on the card)."""
+    TF32 on the card).  DTensors (the dry-run) convolve on each device's
+    shards: batch rows and channels are independent, so ``u`` keeps its
+    batch and channel shards, is gathered along the sequence, and ``w``
+    and ``b`` follow the channels."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(u, DTensor):
+        mesh = u.device_mesh
+        up = tuple(p if isinstance(p, Shard) and p.dim in (0, 2)
+                   else Replicate() for p in u.placements)
+        cp = tuple(Shard(0) if p == Shard(2) else Replicate() for p in up)
+
+        out = _causal_depthwise_conv(local_shard(u, mesh, up),
+                                     local_shard(w, mesh, cp),
+                                     local_shard(b, mesh, cp))
+        return DTensor.from_local(out, mesh, up, run_check=False)
     cw = w.shape[1]
     out = u * w[:, -1]
     for i in range(1, cw):
@@ -46,7 +61,8 @@ def mamba_mixer(
     return_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
     t = x.shape[1]
-    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)          # [B, T, di] each
+    in_proj = shard(p["in_proj"], "embed", "inner")
+    u, z = (x @ weight_for(x, in_proj)).chunk(2, dim=-1)  # [B, T, di]
     split = [dt_rank, ssm_state, ssm_state]
     A = -torch.exp(p["A_log"].to(torch.float32))         # [di, S]
 
@@ -68,8 +84,10 @@ def mamba_mixer(
     else:
         # ---- train / prefill: the selective-scan kernel --------------
         u1 = F.silu(_causal_depthwise_conv(u, p["conv_w"], p["conv_b"]))
-        dt_r, B_s, C_s = torch.split(u1 @ p["x_proj"], split, dim=-1)
-        dt = F.softplus(dt_r @ p["dt_proj_w"] + p["dt_proj_b"])
+        dt_r, B_s, C_s = torch.split(u1 @ weight_for(u1, p["x_proj"]),
+                                     split, dim=-1)
+        dt = F.softplus(dt_r @ weight_for(dt_r, p["dt_proj_w"])
+                        + p["dt_proj_b"])
         y, h_last = ops.selective_scan(u1, dt, A, B_s.contiguous(),
                                        C_s.contiguous(), p["D"])
         y = y.to(x.dtype)
@@ -81,5 +99,6 @@ def mamba_mixer(
                 else F.pad(u, (0, 0, cw - 1 - t, 0))
             new_cache = MambaCache(conv=tail, ssm=h_last)
 
-    out = (y * F.silu(z)) @ p["out_proj"]
+    g = y * F.silu(z)
+    out = g @ weight_for(g, shard(p["out_proj"], "inner", "embed"))
     return out, new_cache

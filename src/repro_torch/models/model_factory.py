@@ -7,9 +7,19 @@
     params_from_reference(tree)    -> params carried over from the JAX
                                       reference's parameter tree
     param_shapes()                 -> the parameter tree as meta tensors
+    param_logical_axes()           -> each leaf's logical sharding axes
     apply(params, batch, mode, cache=None, remat="full")
                                    -> (logits, new_cache)
     init_cache(batch, max_seq=None, n_frames=None)
+    cache_shapes(batch, max_seq) / cache_logical_axes()
+    input_specs(shape_spec)        -> (meta tensors, logical axes) of one
+                                      shape cell's inputs
+
+``input_specs`` is the dry-run contract: meta stand-ins for every model
+input of a given shape cell, with the modality frontends stubbed (audio
+frames / vision patches arrive as precomputed embeddings).  The axes are
+the reference's, less the leading ``"layers"`` axis of its stacked block
+leaves: the port holds one leaf per layer.
 
 ``params`` plays the part of the reference's parameter pytree: an
 ``nn.Module`` that holds the weights on the model's device, trainable.
@@ -22,14 +32,15 @@ precomputed embeddings.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeSpec
 from ..kernels.ops import resolve_device
 from . import encdec, transformer
-from .params import init_from_specs, params_from_reference, shapes_from_specs
+from .params import (init_from_specs, logical_axes_from_specs,
+                     params_from_reference, shapes_from_specs)
 
 WHISPER_CROSS_FRAMES = 1500      # 30 s window after conv downsampling
 
@@ -74,6 +85,9 @@ class Model:
         """The parameter tree as meta tensors (no allocation)."""
         return shapes_from_specs(self._specs(), self.dtype)
 
+    def param_logical_axes(self) -> Dict:
+        return logical_axes_from_specs(self._specs())
+
     # ------------------------------------------------------------ apply
     def apply(self, params, batch: Dict, *, mode: str = "train",
               cache: Optional[Dict] = None, remat: str = "full"):
@@ -103,6 +117,51 @@ class Model:
                 self.dtype, self.device)
         return transformer.init_cache(self.cfg, batch, max_seq, self.dtype,
                                       self.device)
+
+    def cache_shapes(self, batch: int, max_seq: int) -> Dict:
+        """The decode cache as meta tensors (an audio cache with the
+        reference's WHISPER_CROSS_FRAMES cross rows)."""
+        if self._audio:
+            return encdec.init_cache(self.cfg, batch, max_seq,
+                                     WHISPER_CROSS_FRAMES, self.dtype, "meta")
+        return transformer.init_cache(self.cfg, batch, max_seq, self.dtype,
+                                      "meta")
+
+    def cache_logical_axes(self) -> Dict:
+        if self._audio:
+            return encdec.cache_logical_axes(self.cfg)
+        return transformer.cache_logical_axes(self.cfg)
+
+    # ------------------------------------------------------------ inputs
+    def input_specs(self, shape: ShapeSpec) -> Tuple[Dict, Dict]:
+        """(meta tensor dict, logical-axes dict) for one shape cell."""
+        cfg = self.cfg
+        b = shape.global_batch
+        meta = lambda *s, dtype=self.dtype: torch.empty(s, dtype=dtype,
+                                                        device="meta")
+        tok = lambda s: meta(b, s, dtype=torch.int32)
+        tok_ax = ("batch", "seq")
+
+        if shape.kind == "decode":
+            return {"tokens": tok(1)}, {"tokens": ("batch", None)}
+
+        if self._audio:
+            # encoder frames at seq_len (conv-stub embeddings), decoder
+            # tokens at seq_len//8 (mechanical teacher-forcing length)
+            sd = max(shape.seq_len // 8, 8)
+            specs = {"frames": meta(b, shape.seq_len, cfg.d_model),
+                     "tokens": tok(sd)}
+            axes = {"frames": ("batch", "seq", "embed_act"), "tokens": tok_ax}
+            return specs, axes
+
+        if cfg.family == "vlm":
+            p = cfg.vision_patches
+            specs = {"tokens": tok(shape.seq_len - p),
+                     "patches": meta(b, p, cfg.d_model)}
+            axes = {"tokens": tok_ax, "patches": ("batch", "seq", "embed_act")}
+            return specs, axes
+
+        return {"tokens": tok(shape.seq_len)}, {"tokens": tok_ax}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -14,6 +14,16 @@ The combine adds each token's contributions in ascending expert id, each
 add rounded to the activations' type: the order of the reference's
 scatter-add, and deterministic on the card (no atomics), so a bf16
 forward gives the same bits run after run.
+
+Under sharding rules (the dry-run's DTensors) the routing, the dispatch
+gather and the combine run on each device's own routing groups
+(:func:`_per_group`): top-k, the sorts and ``searchsorted`` have no
+DTensor sharding strategy, and they never mix groups.  The expert
+products run on the ``[E, G·C, d]`` buffer, which holds the groups'
+capacity slots side by side; it is annotated as ``[E, G, C, d]``,
+``("experts", "groups", "cap", None)``: the reference's ``("experts",
+"cap", None)`` per group, with the group axis that the reference's
+``vmap`` leaves to the partitioner kept on the groups' shard.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import local_shard, shard, weight_for
 from .layers import mlp
 
 
@@ -67,21 +78,46 @@ def route(x: torch.Tensor, router: torch.Tensor, k: int
 
 def _expert_ffn(xe, p: MoEParams, gated: bool):
     """xe [E, T, d] -> [E, T, d] through each expert's FFN."""
-    h = torch.bmm(xe, p.w_in)
+    h = torch.bmm(xe, weight_for(xe, p.w_in))
     if gated:
-        h = F.silu(torch.bmm(xe, p.w_gate)) * h
+        h = F.silu(torch.bmm(xe, weight_for(xe, p.w_gate))) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return torch.bmm(h, p.w_out)
+    return torch.bmm(h, weight_for(h, p.w_out))
 
 
-def _grouped_moe(xg: torch.Tensor, p: MoEParams, k: int, cap: int,
-                 gated: bool) -> torch.Tensor:
-    """xg: [G, Tg, d], G routing groups -> [G, Tg, d]."""
+def _per_group(fn, xg, *grouped, shared=()):
+    """``fn(xg, *grouped, *shared)``, where ``xg``, ``grouped`` and every
+    output lead with the routing-group axis, on each device's own groups
+    when ``xg`` is a DTensor: ``xg`` and ``grouped`` are placed as ``xg``
+    is on its group axis and replicated on the other mesh dims, ``shared``
+    is replicated, ``fn`` runs on the local shards, and each output is a
+    DTensor placed as ``xg``.  Plain tensors run ``fn`` as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(xg, DTensor):
+        return fn(xg, *grouped, *shared)
+    mesh = xg.device_mesh
+    place = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                  else Replicate() for pl in xg.placements)
+
+    rep = (Replicate(),) * mesh.ndim
+    outs = fn(local_shard(xg, mesh, place),
+              *(local_shard(a, mesh, place) for a in grouped),
+              *(local_shard(a, mesh, rep) for a in shared))
+    wrap = lambda t: DTensor.from_local(t, mesh, place, run_check=False)
+    if isinstance(outs, tuple):
+        return tuple(wrap(t) for t in outs)
+    return wrap(outs)
+
+
+def _dispatch(xg: torch.Tensor, router: torch.Tensor, k: int, cap: int):
+    """Route each group's tokens and gather its expert buffer: (xe [G,
+    E, C, d], disp_gate [G, E*C], by_slot [G, Tg, k] (each token's k
+    slots by ascending expert id, E*C for a dropped one))."""
     g, tg, d = xg.shape
-    e = p.router.shape[1]
+    e = router.shape[1]
     dev, n = xg.device, tg * k
-    top_p, top_i = route(xg, p.router, k)                    # [G, Tg, k]
+    top_p, top_i = route(xg, router, k)                      # [G, Tg, k]
     eid = top_i.reshape(g, n)
     gate = top_p.reshape(g, n).to(xg.dtype)
 
@@ -104,16 +140,22 @@ def _grouped_moe(xg: torch.Tensor, p: MoEParams, k: int, cap: int,
     x_pad = torch.cat([xg, xg.new_zeros((g, 1, d))], dim=1)  # [G, Tg+1, d]
     rows = disp_tok + torch.arange(g, device=dev)[:, None] * (tg + 1)
     xe = x_pad.reshape(g * (tg + 1), d)[rows.reshape(-1)]    # [G*E*C, d]
-    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    ye = _expert_ffn(xe, p, gated)                           # [E, G*C, d]
-    ye = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
-    contrib = ye * disp_gate[..., None]
-
-    # the combine: each token's k slots by ascending expert id; a dropped
-    # slot reads the zero row E*C
+    # the combine's order: each token's k slots by ascending expert id;
+    # a dropped slot reads the zero row E*C
     by_slot = torch.empty_like(dest).scatter_(1, order, dest)
     by_slot = by_slot.reshape(g, tg, k)
     by_slot = torch.gather(by_slot, 2, torch.argsort(top_i, dim=-1))
+    return xe.reshape(g, e, cap, d), disp_gate, by_slot
+
+
+def _combine(ye: torch.Tensor, disp_gate: torch.Tensor,
+             by_slot: torch.Tensor) -> torch.Tensor:
+    """ye [G, E, C, d] -> [G, Tg, d]: each token's slots weighted by
+    their gates, added in ``by_slot``'s order."""
+    g, e, cap, d = ye.shape
+    tg, k = by_slot.shape[1:]
+    dev = ye.device
+    contrib = ye.reshape(g, e * cap, d) * disp_gate[..., None]
     contrib = torch.cat([contrib, contrib.new_zeros((g, 1, d))], dim=1)
     flat = (by_slot + torch.arange(g, device=dev)[:, None, None]
             * (e * cap + 1)).reshape(-1)
@@ -124,6 +166,38 @@ def _grouped_moe(xg: torch.Tensor, p: MoEParams, k: int, cap: int,
     return out
 
 
+def _grouped_moe(xg: torch.Tensor, p: MoEParams, k: int, cap: int,
+                 gated: bool) -> torch.Tensor:
+    """xg: [G, Tg, d], G routing groups -> [G, Tg, d]."""
+    g, _tg, d = xg.shape
+    e = p.router.shape[1]
+    xe, disp_gate, by_slot = _per_group(
+        lambda x, r: _dispatch(x, r, k, cap), xg, shared=(p.router,))
+    xe = shard(xe.transpose(0, 1), "experts", "groups", "cap", None)
+    ye = _expert_ffn(xe.reshape(e, g * cap, d), p, gated)    # [E, G*C, d]
+    ye = shard(ye.reshape(e, g, cap, d), "experts", "groups", "cap", None)
+    ye = ye.transpose(0, 1)                                  # [G, E, C, d]
+    return _per_group(_combine, ye, disp_gate, by_slot)
+
+
+def _groupable(x: torch.Tensor, g: int) -> torch.Tensor:
+    """``x`` [B, S, d], placed so that its rows can be viewed as ``g``
+    routing groups: a DTensor keeps its batch shards while their count
+    divides ``g`` (in mesh order) and is gathered along the rest of the
+    batch and the sequence; a plain tensor is returned as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    mesh, n, place = x.device_mesh, 1, []
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard):
+            keep = p.dim == 0 and g % (n * mesh.size(m)) == 0
+            n *= mesh.size(m) if keep else 1
+            p = p if keep else Replicate()
+        place.append(p)
+    return x.redistribute(mesh, place)
+
+
 def moe_ffn(x: torch.Tensor, p: MoEParams, *, k: int, n_experts: int,
             group_size: int, capacity_factor: float,
             gated: bool = True) -> torch.Tensor:
@@ -132,7 +206,9 @@ def moe_ffn(x: torch.Tensor, p: MoEParams, *, k: int, n_experts: int,
     tot = b * s
     tg = group_size_for(tot, group_size)
     cap = capacity_for(tg, k, n_experts, capacity_factor)
-    y = _grouped_moe(x.reshape(tot // tg, tg, d), p, k, cap, gated)
+    xg = shard(_groupable(x, tot // tg).reshape(tot // tg, tg, d),
+               "groups", None, None)
+    y = _grouped_moe(xg, p, k, cap, gated)
     y = y.reshape(b, s, d)
     if p.shared_w_in is not None:
         y = y + mlp(x, p.shared_w_in, p.shared_w_gate, p.shared_w_out, gated)

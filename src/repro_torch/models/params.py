@@ -82,6 +82,13 @@ def _normal(shape, scale: float, generator: torch.Generator,
     return out
 
 
+def logical_axes_from_specs(specs: Dict) -> Dict:
+    """The tree of each leaf's logical axes (the reference's, less its
+    leading ``"layers"`` axis on block leaves: the port holds one leaf
+    per layer)."""
+    return map_specs(lambda path, spec: spec[1], specs)
+
+
 def shapes_from_specs(specs: Dict, dtype: torch.dtype) -> Dict:
     """The parameter tree as meta tensors (shapes and types, no
     storage)."""

@@ -7,10 +7,10 @@ and the attention-free ssm family (a stack of Mamba-1 blocks).
 
 Where the reference stacks layers per scan period and iterates them with
 ``lax.scan``, the port holds one :class:`Block` per layer in an
-``nn.ModuleList`` and loops over them in Python; the reference's
-``shard`` annotations have no counterpart without a mesh.  Its remat
-policies map to ``torch.utils.checkpoint`` per layer.  Three modes share
-one code path:
+``nn.ModuleList`` and loops over them in Python.  The reference's
+``shard`` annotations stand at its places; they act only under the
+dry-run's sharding rules, on DTensors.  Its remat policies map to
+``torch.utils.checkpoint`` per layer.  Three modes share one code path:
 
   train    — full-sequence causal forward, no cache;
   prefill  — train-like forward that also emits a KV/SSM cache;
@@ -28,7 +28,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
-from .layers import attention, mlp, rms_norm, rope
+from ..sharding import local_shard, shard, splittable, weight_for
+from .layers import attention, lookup, mlp, rms_norm, rope
 from .mamba import MambaCache, mamba_mixer
 from .moe import MoEParams, moe_ffn
 
@@ -140,6 +141,37 @@ def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
     return (q.to(torch.float32) * scale).to(dtype)
 
 
+def write_rows(cache: torch.Tensor, idx: torch.Tensor,
+               val: torch.Tensor) -> None:
+    """``cache[b, idx[b]] = val[b]`` for every row ``b``, in place (the
+    reference donates the cache).  A DTensor cache keeps its placement:
+    ``val`` and ``idx`` are placed like its batch shards, and each device
+    writes the rows that fall in its own shard of the sequence axis (an
+    in-place write cannot change a DTensor's placement)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), idx] = val
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, cp = cache.device_mesh, cache.placements
+    # val [B, ...] drops the sequence axis of cache [B, S, ...]
+    vp = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+               and p.dim != 1 else Replicate() for p in cp)
+    ip = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+               for p in cp)
+    v, i = local_shard(val, mesh, vp), local_shard(idx, mesh, ip)
+    local = cache.to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, cp)
+    n = local.shape[1]
+    li = i - offset[1]
+    inside = (li >= 0) & (li < n)
+    li = li.clamp(0, n - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = inside.reshape((-1,) + (1,) * (v.ndim - 1))
+    local[rows, li] = torch.where(keep, v, local[rows, li])
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int],
                dtype: torch.dtype, device) -> Dict:
     """Per-layer cache; ``index`` is the fill pointer.  Attention layers
@@ -176,6 +208,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: Optional[int],
     return {"blocks": blocks,
             "index": torch.zeros((batch,), dtype=torch.int32,
                                  device=device)}
+
+
+def cache_logical_axes(cfg: ModelConfig) -> Dict:
+    """The cache's logical axes, one entry of ``blocks`` per layer."""
+    blocks: List[Dict] = []
+    kv_ax = ("cache_batch", "cache_seq", "cache_heads", None)
+    for i in range(cfg.n_layers):
+        if cfg.layer_kind(i) == "attn":
+            blk = {"k": kv_ax, "v": kv_ax}
+            if cfg.kv_cache_dtype == "int8":
+                blk["k_scale"] = kv_ax
+                blk["v_scale"] = kv_ax
+        else:
+            blk = {"conv": ("cache_batch", None, "inner"),
+                   "ssm": ("cache_batch", "inner", "state")}
+        blocks.append(blk)
+    return {"blocks": blocks, "index": ("cache_batch",)}
 
 
 # ----------------------------------------------------------------------
@@ -217,20 +266,25 @@ class Block(nn.Module):
             h, nc = self._mamba(h, cache_in, mode)
         if self.ffn == "dense":
             x = rms_norm(h, self.ln2, self.cfg.norm_eps)
-            h = h + mlp(x, self.w_in, getattr(self, "w_gate", None),
-                        self.w_out, self.cfg.gated_ffn)
+            w_gate = getattr(self, "w_gate", None)
+            h = h + mlp(x, shard(self.w_in, "embed", "mlp"),
+                        None if w_gate is None
+                        else shard(w_gate, "embed", "mlp"),
+                        shard(self.w_out, "mlp", "embed"), self.cfg.gated_ffn)
         elif self.ffn == "moe":
             h = h + self._moe(rms_norm(h, self.ln2, self.cfg.norm_eps))
-        return h, nc
+        return shard(h, "batch", "seq", "embed_act"), nc
 
     def _moe(self, x):
         """The routed experts (``moe_w_gate`` falls back to ``moe_w_in``
         without a gated FFN, as in the reference) and the shared one."""
         cfg = self.cfg
+        exp = lambda w: shard(w, "experts", "expert_embed", "expert_mlp")
         p = MoEParams(
-            router=self.router, w_in=self.moe_w_in,
-            w_gate=getattr(self, "moe_w_gate", self.moe_w_in),
-            w_out=self.moe_w_out,
+            router=self.router, w_in=exp(self.moe_w_in),
+            w_gate=exp(getattr(self, "moe_w_gate", self.moe_w_in)),
+            w_out=shard(self.moe_w_out, "experts", "expert_mlp",
+                        "expert_embed"),
             shared_w_in=getattr(self, "shared_w_in", None),
             shared_w_gate=getattr(self, "shared_w_gate", None),
             shared_w_out=getattr(self, "shared_w_out", None))
@@ -248,36 +302,41 @@ class Block(nn.Module):
         b, s, _ = h.shape
         hd, nh, kvh = cfg.hd, cfg.n_heads, cfg.n_kv_heads
         x = rms_norm(h, self.ln1, cfg.norm_eps)
-        q = (x @ self.wq).reshape(b, s, nh, hd)
-        k = (x @ self.wk).reshape(b, s, kvh, hd)
-        v = (x @ self.wv).reshape(b, s, kvh, hd)
+        wq = shard(self.wq, "embed", "heads")
+        wk = shard(self.wk, "embed", "kv_heads")
+        wv = shard(self.wv, "embed", "kv_heads")
+        q = splittable(x @ weight_for(x, wq), -1, nh).reshape(b, s, nh, hd)
+        k = splittable(x @ weight_for(x, wk), -1, kvh).reshape(b, s, kvh,
+                                                                 hd)
+        v = splittable(x @ weight_for(x, wv), -1, kvh).reshape(b, s, kvh,
+                                                                 hd)
         if cfg.qk_norm:
             q = rms_norm(q, self.q_norm, cfg.norm_eps)
             k = rms_norm(k, self.k_norm, cfg.norm_eps)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+        q = shard(q, "batch", "seq", "heads", None)
 
         new_cache = None
         quant = cfg.kv_cache_dtype == "int8"
         if mode == "decode":
             kc, vc = cache_in["k"], cache_in["v"]
-            rows = torch.arange(b, device=h.device)
             idx = positions[:, 0].long()
             if quant:
                 kq, ks = _quantize_kv(k[:, 0])
                 vq, vs = _quantize_kv(v[:, 0])
-                kc[rows, idx] = kq
-                vc[rows, idx] = vq
+                write_rows(kc, idx, kq)
+                write_rows(vc, idx, vq)
                 kscale, vscale = cache_in["k_scale"], cache_in["v_scale"]
-                kscale[rows, idx] = ks
-                vscale[rows, idx] = vs
+                write_rows(kscale, idx, ks)
+                write_rows(vscale, idx, vs)
                 k_full = _dequantize_kv(kc, kscale, k.dtype)
                 v_full = _dequantize_kv(vc, vscale, v.dtype)
                 new_cache = {"k": kc, "v": vc, "k_scale": kscale,
                              "v_scale": vscale}
             else:
-                kc[rows, idx] = k[:, 0]
-                vc[rows, idx] = v[:, 0]
+                write_rows(kc, idx, k[:, 0])
+                write_rows(vc, idx, v[:, 0])
                 k_full, v_full = kc, vc
                 new_cache = {"k": kc, "v": vc}
             kv_pos = torch.arange(kc.shape[1], dtype=torch.int32,
@@ -293,7 +352,8 @@ class Block(nn.Module):
                                  "v_scale": vs}
                 else:
                     new_cache = {"k": k, "v": v}
-        out = out.reshape(b, s, nh * hd) @ self.wo
+        out = splittable(out.reshape(b, s, nh * hd), -1, nh)
+        out = out @ weight_for(out, shard(self.wo, "heads", "embed"))
         return h + out, new_cache
 
     def _mamba(self, h, cache_in, mode):
@@ -346,10 +406,11 @@ class Transformer(nn.Module):
             raise ValueError("decode needs a cache")
         cfg = self.cfg
         b, s = tokens.shape
-        h = self.embed[tokens]
+        h = lookup(self.embed, tokens)
         if patches is not None:
             h = torch.cat([patches.to(h.dtype), h], dim=1)
             s = h.shape[1]
+        h = shard(h, "batch", "seq", "embed_act")
         if mode == "decode":
             positions = cache["index"][:, None]
         else:
@@ -366,8 +427,8 @@ class Transformer(nn.Module):
                 h, nc = run(block, h, cin, positions, mode)
             caches_out.append(nc)
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
-        logits = h @ (self.embed.t() if self.lm_head is None
-                      else self.lm_head)
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        logits = shard(h @ weight_for(h, head), "batch", "seq", "vocab")
 
         new_cache = None
         if mode == "prefill":

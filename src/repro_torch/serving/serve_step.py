@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models import Model
+from ..sharding import shard
 
 #: the cache leaves that hold one row per position (attention's KV cache);
 #: an encoder-decoder's cross rows (``ck``, ``cv``) hold one per frame
@@ -26,12 +27,15 @@ def make_prefill_step(model: Model) -> Callable:
 
 
 def make_decode_step(model: Model) -> Callable:
-    """One greedy decode step: (next token int32[B, 1], cache)."""
+    """One greedy decode step: (next token int32[B, 1], cache).  Under
+    the dry-run's sharding rules the last logits are gathered along the
+    vocabulary before the argmax (a no-op everywhere else)."""
     @torch.no_grad()
     def decode(params, tokens, cache) -> Tuple[torch.Tensor, Dict]:
         logits, cache = model.apply(params, {"tokens": tokens},
                                     mode="decode", cache=cache)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        last = shard(logits[:, -1, :], "batch", None)
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], cache
     return decode
 

@@ -128,3 +128,31 @@ def adamw_update(grads: Dict[str, torch.Tensor], state: AdamWState, params,
         p.copy_((pf - lr * delta).to(p.dtype))
         new_m[n], new_v[n] = m32.to(sdt), v32.to(sdt)
     return params, AdamWState(step=step, m=new_m, v=new_v, ef=new_ef), lr
+
+
+def opt_state_logical_axes(param_axes, cfg: AdamWConfig) -> AdamWState:
+    """Optimizer state shards exactly like its parameters (ZeRO-style).
+    ``param_axes`` is keyed by parameter name, as the state is
+    (:func:`named_axes`)."""
+    ef = param_axes if cfg.grad_compression == "bf16_ef" else None
+    return AdamWState(step=(), m=param_axes, v=param_axes, ef=ef)
+
+
+def named_axes(axes_tree) -> Dict[str, tuple]:
+    """A model's logical-axes tree (``Model.param_logical_axes``) keyed
+    by parameter name, as ``named_params`` names the parameters
+    (``blocks.3.wq``)."""
+    out: Dict[str, tuple] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, list):
+            items = enumerate(node)
+        else:
+            out[prefix] = node
+            return
+        for k, v in items:
+            walk(v, f"{prefix}.{k}" if prefix else str(k))
+    walk(axes_tree, "")
+    return out
