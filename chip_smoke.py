@@ -23,9 +23,10 @@ and drives the simulator's main path on the card:
    kernel against its plain PyTorch version on the card, on the largest
    inputs each phase (Seth, RICC) gave it, in the kernel's own layout
    (fit bits and one score row; releases grouped by node), plus ragged,
-   -1-floored and sparse edge cases (bits and counts exact, score
-   bitwise); per phase its launches, time, device time over 200 calls,
-   the plain version's time and its bound;
+   -1-floored and sparse edge cases, and R 9, 12 and 16 past the 8 types
+   the kernels unroll (bits and counts exact, score bitwise); per phase
+   its launches, time, device time over 200 calls, the plain version's
+   time and its bound;
 5. mamba: falcon-mamba-7b at full width (64 layers, d_model 4096, bf16,
    random weights from a seeded generator on the card) serves 8 requests
    through ``RequestBatcher`` (4 slots) and ``greedy_generate``: 4
@@ -116,6 +117,14 @@ and drives the simulator's main path on the card:
    equal); its time and the plain version's on the card, and its device
    time from the profiler over 4 launches after a warm-up, in a fresh
    process;
+11b. an Intrepid-sized system (ANL Intrepid, Blue Gene/P, in the
+   Parallel Workloads Archive: 40,960 nodes x 4 cores x 2 GB), whose node
+   arrays outgrow one block's shared memory (the kernel's global tier):
+   the 8 policies on 1,000 jobs of 1 to 4096 nodes submitted over a day,
+   in one ``FleetRunner().run``, every sim equal to its numpy twin run
+   to the end (twins in worker processes) and its invariants; its two
+   launches timed alone with CUDA events, and their device time from the
+   profiler in a fresh process;
 12. the Experiment layer, the paper's Table-2 study:
    ``benchmarks_torch/table2_dispatchers.run`` on the card (Seth, 8,000
    jobs, the 8 policies all on the fleet: 2 ``fleet_engine`` launches;
@@ -125,8 +134,8 @@ and drives the simulator's main path on the card:
    example's three vectorized rows (FIFO-vFF, FIFO-vBF, vEBF-vFF) through
    an ``Experiment`` on the card, each output byte-equal to its numpy
    twin's;
-13. a policy study: ``Experiment`` over the 8 policies x 16 repeats of a
-   10,000-job ``SyntheticWorkload`` on Seth, one ``run_simulation`` (128
+13. a policy study: ``Experiment`` over the 8 policies x 8 repeats of a
+   10,000-job ``SyntheticWorkload`` on Seth, one ``run_simulation`` (64
    sims, 2 ``fleet_engine`` launches): every row's invariants, engine
    and seed, FIFO-FF r0 and EBF-BF r0 equal to host twins; the wall
    split into planning and ``FleetRunner.build``, ``FleetRunner.run``,
@@ -194,7 +203,7 @@ The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
 kernels on phases 2-3, ``selective_scan`` on phases 5, 5e and 15,
-``fleet_engine`` on phases 8-10 and on each of 12 and 13,
+``fleet_engine`` on phases 8-10, 11b and on each of 12 and 13,
 ``alloc_score_batch`` and ``ebf_shadow`` on phase 12's vectorized rows,
 the four kernels but the scan on phase 14; each path's counts are set
 to 0 just before it and read just after; the kernel table's launches add
@@ -283,6 +292,12 @@ RICC = {"groups": {"ricc": {"core": 8, "mem": 12288}},
 SETH_JOBS = 10_000
 RICC_JOBS = 5_000
 RICC_MAX_EVENTS = 150
+# an Intrepid-sized system: ANL Intrepid (Blue Gene/P) in the Parallel
+# Workloads Archive, 40,960 nodes of 4 cores and 2 GB
+INTREPID = {"groups": {"intrepid": {"core": 4, "mem": 2048}},
+            "nodes": {"intrepid": 40960}}
+INTREPID_JOBS = 1_000
+INTREPID_SPAN_S = 24 * 3600
 
 MAMBA_ARCH = "falcon-mamba-7b"
 SERVE_SLOTS = 4
@@ -344,7 +359,7 @@ KERNELS = {
                    "src/repro/kernels/ebf_shadow.py:60", "dispatch"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:61", "mamba"),
-    "fleet_engine": ("src/repro_torch/kernels/csrc/fleet_engine.cu",
+    "fleet_engine": ("src/repro_torch/kernels/csrc/fleet_engine.cuh",
                      "src/repro/fleet/engine.py:423", "fleet"),
 }
 DISPATCH_KERNELS = {k for k, v in KERNELS.items() if v[2] == "dispatch"}
@@ -368,7 +383,8 @@ QUARANTINE_S, CKPT_EVERY_S, TELE_STRIDE = 3600, 1800, 50
 # the Experiment phases: the Table-2 study (benchmarks_torch's own size
 # and seed) and a policy study of a synthetic workload on Seth
 TABLE2_JOBS, TABLE2_SEED = 8_000, 2
-STUDY_JOBS, STUDY_SEED, STUDY_REPEATS = 10_000, 100, 16
+# 8 repeats: within the smoke's time limit beside phase 11b
+STUDY_JOBS, STUDY_SEED, STUDY_REPEATS = 10_000, 100, 8
 STUDY_WL = dict(mean_interarrival_s=45.0, duration_median_s=1300.0,
                 duration_sigma=1.5, resources={"core": (1, 4),
                                                "mem": (128, 1024)})
@@ -409,6 +425,26 @@ def ricc_jobs(job_cls, n, seed=1):
             requested_nodes=rng.randint(1, 32),
             requested_resources={"core": cores,
                                  "mem": cores * rng.choice([768, 1536])})
+
+
+def intrepid_jobs(job_cls, n=INTREPID_JOBS, seed=3):
+    """``n`` jobs submitted uniformly over a day, each on a power of two
+    of 1 to 4096 nodes, 10 min to 4 h, asking per node 1 to 4 cores and
+    256 or 512 MB a core (at most a node's 4 cores and 2 GB): about 1.3
+    times what the system runs in a day, so the queue builds."""
+    rng = random.Random(seed)
+    subs = sorted(rng.randrange(INTREPID_SPAN_S) for _ in range(n))
+    for i, t in enumerate(subs):
+        dur = rng.randint(600, 4 * 3600)
+        cores = rng.choice([1, 2, 4, 4])
+        yield job_cls(
+            id=str(i), user_id=rng.randint(1, 200), submission_time=t,
+            duration=dur,
+            expected_duration=min(int(dur * rng.uniform(1.0, 2.0)) + 300,
+                                  6 * 3600),
+            requested_nodes=2 ** rng.randint(0, 12),
+            requested_resources={"core": cores,
+                                 "mem": cores * rng.choice([256, 512])})
 
 
 # ----------------------------------------------------------------------
@@ -1926,20 +1962,48 @@ def run_fleet(sims, profile=False):
     return res, wall, ours, total
 
 
+def launch_states(res, sims):
+    """{cost class: the states of its launch, padded as the runner padded
+    them, and their indices}, for each of a ``FleetRunner.run``'s
+    launches (blocking, EBF)."""
+    out = {}
+    for cls in ("blocking", "ebf"):
+        idx = [i for i, s in enumerate(sims)
+               if (s.sched_id == SCHED_EBF) == (cls == "ebf")]
+        if idx:
+            f = res.finals[idx[0]]
+            out[cls] = (idx, [sims[i].state.pad_to(
+                f.n_rows, f.assigned.shape[1], f.fail_ev.shape[0],
+                f.tele_buf.shape[0]) for i in idx])
+    return out
+
+
+def launch_device_ms(launches):
+    """The profiler's device time of ``fleet_engine`` per launch (worker
+    process, on the card): ``launches`` maps a name to the states of one
+    launch; each is stacked and advanced once under the profiler."""
+    dev = torch.device("cuda")
+    out = {}
+    for name, states in launches.items():
+        batch = stack(states, dev)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            advance(batch)
+            torch.cuda.synchronize()
+        out[name] = device_time_us(prof)[0] * 1e-3
+    return out
+
+
 def time_launches(res, sims, grid, dev):
     """The launches of a ``FleetRunner.run`` again, one per cost class:
     ``advance`` alone on the states the runner padded, stacked on the
     card, timed with CUDA events; its finals must equal the run's.  Logs
-    one line per launch (kernel ms, us per event per sim)."""
-    for cls in ("blocking", "ebf"):
-        idx = [i for i, s in enumerate(sims)
-               if (s.sched_id == SCHED_EBF) == (cls == "ebf")]
-        if not idx:
-            continue
-        f = res.finals[idx[0]]
-        batch = stack([sims[i].state.pad_to(
-            f.n_rows, f.assigned.shape[1], f.fail_ev.shape[0],
-            f.tele_buf.shape[0]) for i in idx], dev)
+    one line per launch (kernel ms, us per event per sim) and returns
+    {cost class: ms}."""
+    times = {}
+    for cls, (idx, states) in launch_states(res, sims).items():
+        batch = stack(states, dev)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1957,6 +2021,8 @@ def time_launches(res, sims, grid, dev):
         log({"phase": "fleet_launch", "grid": grid, "launch": cls,
              "sims": len(idx), "events": events, "ms": ms,
              "us_per_event_per_sim": ms * 1e3 * len(idx) / events})
+        times[cls] = ms
+    return times
 
 
 def fleet_seth_grid(dev):
@@ -2036,12 +2102,14 @@ def seth_failures():
 
 
 def twin_job(system, tag, max_events=None, failures=False):
-    """A numpy twin (worker process): the RICC-sized system, or Seth
-    under the failure schedule with checkpoint credit, a quarantine and
-    telemetry."""
+    """A numpy twin (worker process): the RICC-sized or the Intrepid-sized
+    system, or Seth under the failure schedule with checkpoint credit, a
+    quarantine and telemetry."""
     torch.set_num_threads(1)
     rec = Recorder(make_sched(tag))
     kw, jobs = {}, ricc_jobs(Job, RICC_JOBS)
+    if system == INTREPID:
+        jobs = intrepid_jobs(Job)
     if failures:
         kw = dict(failures=seth_failures()[1],
                   checkpoint=CheckpointRestartPolicy(CKPT_EVERY_S),
@@ -2153,6 +2221,65 @@ def fleet_failures(twins):
     log({"phase": "fleet_failures", "fail_events": int(inj.times.shape[0]),
          "horizon_s": horizon, "wall_s": wall, "launches": res.launches,
          "rows": rows, "equal_to_host": True, "cuda_launches": launches})
+    return launches
+
+
+def fleet_intrepid(dev, twins):
+    """Phase 11b: the 8 policies on the Intrepid-sized system (40,960
+    nodes, past one block's shared memory: the kernel's global tier), in
+    one ``FleetRunner().run``, every sim against its numpy twin run to the
+    end (``twins``: tag -> pending TwinRun); its two launches timed alone
+    with CUDA events, and their device time read by the profiler in a
+    fresh process."""
+    t0 = time.perf_counter()
+    base = FleetRunner.build("intrepid", intrepid_jobs(Job), INTREPID,
+                             SCHED_FIFO)
+    sims = policy_sims(base)
+    build_s = time.perf_counter() - t0
+    n, r = base.state.avail.shape
+    smem = build.library("fleet_engine").fleet_engine_shared_bytes(
+        n, r, build.device_index(dev))
+    if smem != 0:
+        raise AssertionError(f"intrepid: {smem} bytes of shared memory, "
+                             f"not the global tier")
+    counters.reset_device_launches()
+    res, wall, _, _ = run_fleet(sims)
+    launches = counters.device_launch_stats()
+    if not launches.get("fleet_engine"):
+        raise AssertionError("fleet intrepid: no CUDA launch of "
+                             "fleet_engine")
+    rows = []
+    for i, (sc, ac) in enumerate(POLICIES):
+        tag = tag_of(sc, ac)
+        check_invariants(res, i)
+        twin = twins[tag].get()
+        check_against_twin(res, i, twin, twin.summary, f"intrepid {tag}")
+        q0 = res.finals[i].log_queue + res.finals[i].log_started
+        rows.append({"row": tag, "events": int(res.finals[i].n_events),
+                     "max_queue": int(q0[:int(res.finals[i].n_events)].max()),
+                     "twin_wall_s": twin.wall,
+                     "twin_events_per_s": twin.summary["events"] / twin.wall})
+    events = sum(int(f.n_events) for f in res.finals)
+    ms = time_launches(res, sims, "intrepid", dev)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        device = pool.apply(launch_device_ms, ({
+            cls: states for cls, (_, states) in
+            launch_states(res, sims).items()},))
+    nbytes = batch_bytes(res.finals)
+    b_ms, b_by = bound("fleet_engine", (nbytes,))
+    log({"phase": "fleet_intrepid", "sims": len(sims),
+         "jobs": INTREPID_JOBS, "nodes": n, "R": r,
+         "K": int(res.finals[0].assigned.shape[1]), "tier": "global",
+         "build_s": build_s, "events": events, "wall_s": wall,
+         "events_per_s": events / wall, "launches": res.launches,
+         "launch_ms": ms, "device_ms": device, "bytes": nbytes,
+         "bound_ms": b_ms, "bound_by": b_by, "rows": rows,
+         "equal_to_twins": True, "invariants": True,
+         "cuda_launches": launches})
+    log({"phase": "kernel", "name": "fleet_engine", "path": "intrepid",
+         "shape": [len(sims), res.finals[0].n_rows, n, r],
+         "launches": launches["fleet_engine"], "ms": ms,
+         "device_ms": device, "bound_ms": b_ms, "bound_by": b_by})
     return launches
 
 
@@ -2276,18 +2403,22 @@ def fleet(dev):
                       for tag in ("FIFO-FF", "EBF-BF")}
         plains = [pool.apply_async(plain_job, (states, use_kernel))
                   for _, states, use_kernel in cases]
+        intrepid_twins = {tag_of(sc, ac): pool.apply_async(twin_job, (
+            INTREPID, tag_of(sc, ac))) for sc, ac in POLICIES}
         seth_launches, grid = fleet_seth_grid(dev)
         ricc_launches = fleet_ricc(ricc_twins, dev)
         fail_launches = fleet_failures(fail_twins)
         ms, plain_ms, b_ms, b_by = fleet_kernel_vs_plain(dev, cases, plains)
+        intrepid_launches = fleet_intrepid(dev, intrepid_twins)
         pool.close()
         pool.join()
     log({"phase": "fleet", "workers": workers,
          "total_s": time.perf_counter() - t0})
     launches = sum(d.get("fleet_engine", 0) for d in (
-        seth_launches, ricc_launches, fail_launches))
+        seth_launches, ricc_launches, fail_launches, intrepid_launches))
     for name, got in (("seth", seth_launches), ("ricc", ricc_launches),
-                      ("failures", fail_launches)):
+                      ("failures", fail_launches),
+                      ("intrepid", intrepid_launches)):
         if not got.get("fleet_engine"):
             raise AssertionError(f"fleet {name}: no CUDA launch of "
                                  f"fleet_engine")
@@ -2480,9 +2611,9 @@ def experiment_table2(dev, td, twins, produce_plots):
 
 
 def experiment_study(dev, td, twins):
-    """Phase 13: ``Experiment`` over the 8 policies x 16 repeats of a
+    """Phase 13: ``Experiment`` over the 8 policies x 8 repeats of a
     10,000-job SyntheticWorkload on Seth, one ``run_simulation`` on the
-    card (128 sims, 2 ``fleet_engine`` launches), under the profiler for
+    card (64 sims, 2 ``fleet_engine`` launches), under the profiler for
     its device busy share; every row's invariants, its engine and seed,
     and FIFO-FF r0 and EBF-BF r0 against host twins (``twins``)."""
     exp = Experiment("study", study_workload(), SETH, output_dir=td,
@@ -2936,6 +3067,9 @@ def run(dev) -> int:
              for n in (1, 31, 32, 33, 129, 1000) for j in (1, 37)]
     extra += [tuple(to_dev(x, dev) for x in floored_system(rng, *nrj))
               for nrj in ((1024, 2, 4097), (4097, 2, 70000), (77, 8, 5))]
+    # past the 8 unrolled types: the generic instance
+    extra += [tuple(to_dev(x, dev) for x in floored_system(rng, *nrj))
+              for nrj in ((33, 9, 37), (1025, 12, 1000), (4097, 16, 3))]
     table.append(kernel_rows(
         "alloc_score_batch", k_alloc.alloc_score_batch,
         ref.alloc_score_packed_ref,
@@ -2946,8 +3080,9 @@ def run(dev) -> int:
 
     # alloc_score: (avail, capacity, req [R]) -> (bits [W], score [N])
     extra = []
-    for n in (1, 31, 33, 1000):
-        a, c, q = floored_system(rng, n, 2, 1)
+    for n, r in ((1, 2), (31, 2), (33, 2), (1000, 2), (129, 9), (1000, 12),
+                 (33, 16)):
+        a, c, q = floored_system(rng, n, r, 1)
         extra.append((to_dev(a, dev), to_dev(c, dev), to_dev(q[0], dev)))
     table.append(kernel_rows(
         "alloc_score", k_alloc.alloc_score, alloc_one_plain,
@@ -2965,6 +3100,9 @@ def run(dev) -> int:
             (50, 2, 25, 6, 4, -3),       # negative deltas
             (10, 2, 0, 1, 3, 0),         # no releases: M = 0
             (300, 2, 40, 10, 4, 0),      # malformed: a group index of M
+            (40, 9, 30, 3, 6, -1),       # past the 8 types in registers
+            (1500, 12, 400, 50, 6, -1),
+            (257, 16, 60, 20, 8, 0),
             (2000, 2, 12000, 6000, 4, -1)):  # M past the shared limit
         a, _, q = floored_system(rng, n, r, 1)
         rel = k_ebf.sparse_releases(n, release_tuples(

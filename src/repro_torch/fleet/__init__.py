@@ -3,7 +3,7 @@
 Runs whole dispatcher×seed grids in one device launch: a fixed-capacity
 :class:`SimState` snapshotted from the host core, an engine that runs
 every event of a sim on the card (one CUDA thread block per sim,
-``kernels/csrc/fleet_engine.cu``) covering FIFO/SJF/LJF/EBF ×
+``kernels/csrc/fleet_engine.cuh``) covering FIFO/SJF/LJF/EBF ×
 FirstFit/BestFit, and a :class:`FleetRunner` that stacks a leading sim
 axis and splits it across devices.  ``HostSnapshot`` is the lossless
 host-side export/import companion (the host-fallback contract).

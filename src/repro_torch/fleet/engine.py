@@ -4,7 +4,7 @@ The host simulator pays a host round trip per event; this engine runs
 every event of a simulation with no host work in between: next-event
 time, completion release, failure drain, submission batch and a full
 dispatch round.  On the card it is ONE hand-written CUDA kernel
-(``kernels/csrc/fleet_engine.cu``) that runs a whole simulation per
+(``kernels/csrc/fleet_engine.cuh``) that runs a whole simulation per
 thread block, so a grid of dispatcher x seed sims is one launch and
 every sim runs at its own pace.
 
@@ -585,16 +585,11 @@ def advance(state: SimState, use_kernel: bool = False,
 # ----------------------------------------------------------------------
 # the kernel
 # ----------------------------------------------------------------------
-#: largest node count the kernel takes (its node arrays live in shared
-#: memory; the launch also checks the card's per-block limit)
-MAX_N = 2048
-#: largest resource-type count the kernel takes
-MAX_R = 8
-
-
 def _launch_kernel(batch: SimState, use_kernel: bool) -> None:
     """Launch ``fleet_engine`` on a stacked CUDA batch, in place: one
-    thread block per sim."""
+    thread block per sim, at any N and R (the node arrays live in shared
+    memory where they fit, else in the scratch; shapes past the kernel's
+    fast paths launch the instances of ``csrc/fleet_engine_wide.cu``)."""
     dev = batch.submit.device
     for name, t in zip(SimState._fields, batch):
         build.check_input(t, name, t.dim(), dev)
@@ -604,22 +599,21 @@ def _launch_kernel(batch: SimState, use_kernel: bool) -> None:
     e = batch.log_t.shape[1]
     f = batch.fail_ev.shape[1]
     s = batch.tele_buf.shape[1]
-    if n > MAX_N or r > MAX_R:
-        raise ValueError(f"fleet_engine takes N <= {MAX_N} and R <= "
-                         f"{MAX_R}, got N {n}, R {r}")
     if b == 0:
         return
     lib = build.library("fleet_engine")
     index = build.device_index(dev)
-    smem = lib.fleet_engine_shared_bytes(n, r)
-    limit = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"fleet_engine: N {n} x R {r} needs {smem} bytes "
-                         f"of shared memory per block, the card has {limit}")
-    # per sim: the running and queued row lists, two row columns and the
-    # shadow walk's release keys
-    scratch = torch.empty((b, lib.fleet_engine_scratch_ints(m)),
-                          dtype=torch.int32, device=dev)
+    # past 2048 nodes, 8 types or one block's shared memory: the
+    # instances with the key buffer, the generic counts and the global tier
+    wide = lib.fleet_engine_needs_wide(n, r, index)
+    build.check(0 if wide >= 0 else -wide, "fleet_engine")
+    if wide:
+        lib = build.library("fleet_engine_wide")
+    # per sim: the running and queued row lists, two row columns, the
+    # shadow walk's release keys and, past shared memory, the node arrays
+    per_sim = lib.fleet_engine_scratch_ints(m, n, r, index)
+    build.check(0 if per_sim >= 0 else -per_sim, "fleet_engine scratch")
+    scratch = torch.empty((b, per_sim), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_uint64 * len(batch))(*(t.data_ptr() for t in batch))
     strides = (ctypes.c_int64 * len(batch))(*(t[0].numel() for t in batch))
     stream = torch.cuda.current_stream(index).cuda_stream

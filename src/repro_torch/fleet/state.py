@@ -8,7 +8,7 @@ Two exports live here:
   availability/capacity, the sorted pending-submission window, the masked
   FIFO queue encoded as per-row ranks, and a per-event log) that
   ``fleet.engine.advance`` runs to the end of the simulation (one CUDA
-  thread block per sim, ``csrc/fleet_engine.cu``) and
+  thread block per sim, ``csrc/fleet_engine.cuh``) and
   ``fleet.runner.FleetRunner`` stacks along a leading sim axis and
   splits across devices.  Built either straight from a workload
   (:meth:`SimState.from_workload`) or snapshotted from a live

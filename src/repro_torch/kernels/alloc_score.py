@@ -28,10 +28,6 @@ import torch
 
 from . import build, counters, ref
 
-#: largest resource-type count the kernel keeps in registers
-MAX_R = 8
-
-
 def words(n: int) -> int:
     """W: 32-bit words per fit row of N nodes."""
     return -(-n // 32)
@@ -63,8 +59,6 @@ def packed(avail: torch.Tensor, capacity: torch.Tensor, req: torch.Tensor,
     if not build.launch_target(avail.device):
         bits, score = ref.alloc_score_packed_ref(avail, capacity, req2)
         return torch.cat([bits.reshape(-1), score.view(torch.int32)])
-    if r > MAX_R:
-        raise ValueError(f"alloc_score kernel takes R <= {MAX_R}, got {r}")
     out = torch.empty((j * words(n) + n,), dtype=torch.int32,
                       device=avail.device)
     if n == 0:

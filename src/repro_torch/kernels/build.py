@@ -40,10 +40,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "alloc_score_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "ebf_shadow": {
-        # avail, req, node_ptr, entry_m, entry_vec, fits, M, N, R, nnz,
-        # device, stream
-        "ebf_shadow_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P],
+        # avail, req, node_ptr, entry_m, entry_vec, fits, work, M, N, R,
+        # nnz, device, stream
+        "ebf_shadow_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P],
         "ebf_shadow_shared_m": [],
     },
     "selective_scan": {
@@ -59,12 +59,21 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # E, F, S, use_kernel, device, stream
         "fleet_engine_launch": [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _P],
-        # N, R -> dynamic shared memory bytes
-        "fleet_engine_shared_bytes": [_I, _I],
-        # M -> int32 scratch elements per sim
-        "fleet_engine_scratch_ints": [_I],
+        # N, R, device -> 1 if fleet_engine_wide launches that shape
+        "fleet_engine_needs_wide": [_I, _I, _I],
+        # N, R, device -> dynamic shared memory bytes (0: global tier)
+        "fleet_engine_shared_bytes": [_I, _I, _I],
+        # M, N, R, device -> int32 scratch elements per sim
+        "fleet_engine_scratch_ints": [_I, _I, _I, _I],
     },
 }
+# the fleet engine's instances past its fast paths: the same launchers,
+# from csrc/fleet_engine_wide.cu
+SIGNATURES["fleet_engine_wide"] = SIGNATURES["fleet_engine"]
+#: launchers that return a 64-bit count (the others return a CUDA error
+#: code or an int)
+RESTYPES = {"fleet_engine_shared_bytes": ctypes.c_longlong,
+            "fleet_engine_scratch_ints": ctypes.c_longlong}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -125,7 +134,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
         _loaded[name] = lib
     return lib
 

@@ -21,7 +21,9 @@
 // Bound on the card: bytes (J*R + 2*N*R words in, J*W + N out), ~0.2 us at
 // the RICC peak, far below the launch.  Design: a warp covers 32
 // consecutive nodes, each lane holding its node's avail row in registers
-// (R is a template parameter, 1..kMaxR, so the compares unroll), and one
+// (R is a template parameter, 1..8, so the compares unroll; past 8 one
+// generic instance reads the row and the request from memory,
+// with the same bits and the same float32 sum in r order), and one
 // __ballot_sync per request row yields the word; lanes past N vote 0 and
 // stay in the loop, so every ballot is defined.  A block of kWarps warps
 // covers kWarps words and walks chunks of 32 request rows staged in
@@ -40,7 +42,6 @@ namespace {
 constexpr int kWarps = 8;                 // words (of 32 nodes) per block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 32;                 // request rows per chunk: a word
-constexpr int kMaxR = 8;
 constexpr int kMaxGridY = 65535;
 
 template <int R>
@@ -87,6 +88,36 @@ alloc_score_kernel(const int* __restrict__ req, const int* __restrict__ avail,
   }
 }
 
+// any R: the same words and score, the node's row and each request row
+// read from global memory (the request rows are one broadcast per warp)
+__global__ void __launch_bounds__(kThreads)
+alloc_score_any_kernel(const int* __restrict__ req,
+                       const int* __restrict__ avail,
+                       const int* __restrict__ cap, unsigned* __restrict__ bits,
+                       float* __restrict__ score, int J, int N, int R) {
+  const int W = (N + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int word = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int n = word * 32 + lane;
+  const bool live = n < N;
+  const int* a = avail + static_cast<long long>(live ? n : 0) * R;
+  if (blockIdx.y == 0 && live)
+    score[n] = alloc_fit::load(cap + static_cast<long long>(n) * R, a, R);
+  const int n_chunks = (J + kRows - 1) / kRows;
+  for (int chunk = blockIdx.y; chunk < n_chunks; chunk += gridDim.y) {
+    const long long j0 = static_cast<long long>(chunk) * kRows;
+    const int rows = min(kRows, J - static_cast<int>(j0));
+    unsigned mine = 0;                    // row j0 + lane's word
+    for (int k = 0; k < kRows; ++k) {
+      const int ok = live && k < rows
+                         ? alloc_fit::fits(a, req + (j0 + k) * R, R) : 0;
+      const unsigned b = __ballot_sync(0xffffffffu, ok);
+      if (lane == k) mine = b;
+    }
+    if (word < W && lane < rows) bits[(j0 + lane) * W + word] = mine;
+  }
+}
+
 template <int R>
 void launch(const dim3& grid, cudaStream_t stream, const void* req,
             const void* avail, const void* cap, void* bits, void* score,
@@ -103,7 +134,8 @@ extern "C" int alloc_score_launch(const void* req, const void* avail,
                                   const void* cap, void* bits, void* score,
                                   int J, int N, int R, int device,
                                   void* stream) {
-  if (R < 1 || R > kMaxR || N < 1 || J < 0)
+  if (R < 1 || N < 1 || J < 0 ||
+      static_cast<long long>(N) * R > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -121,7 +153,13 @@ extern "C" int alloc_score_launch(const void* req, const void* avail,
     case 5: launch<5>(grid, s, req, avail, cap, bits, score, J, N); break;
     case 6: launch<6>(grid, s, req, avail, cap, bits, score, J, N); break;
     case 7: launch<7>(grid, s, req, avail, cap, bits, score, J, N); break;
-    default: launch<8>(grid, s, req, avail, cap, bits, score, J, N); break;
+    case 8: launch<8>(grid, s, req, avail, cap, bits, score, J, N); break;
+    default:
+      alloc_score_any_kernel<<<grid, kThreads, 0, s>>>(
+          static_cast<const int*>(req), static_cast<const int*>(avail),
+          static_cast<const int*>(cap), static_cast<unsigned*>(bits),
+          static_cast<float*>(score), J, N, R);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }

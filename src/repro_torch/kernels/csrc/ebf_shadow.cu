@@ -34,10 +34,15 @@
 //
 // Bound on the card: bytes, each input word read once and each fits word
 // written once (N*R + R + N + 1 + nnz*(1+R) + M words), well under a
-// microsecond at the RICC peak; the launch is the floor.  The launcher
-// selects the tensors' device first: this library links its own CUDA
-// runtime.
+// microsecond at the RICC peak; the launch is the floor.  A node's
+// running sums cum[0, R) sit in registers up to kMaxR types; past that
+// (kWide) they sit in its row of work[N, R], a scratch the wrapper
+// allocates, and the request is read from memory: the same counts, in
+// the same launch shape.  The launcher selects the tensors' device
+// first: this library links its own CUDA runtime.
 #include <cuda_runtime.h>
+
+#include "alloc_fit.cuh"
 
 namespace {
 
@@ -63,12 +68,13 @@ __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
   return v;
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 ebf_shadow_kernel(const int* __restrict__ avail, const int* __restrict__ req,
                   const int* __restrict__ node_ptr,
                   const int* __restrict__ entry_m,
-                  const int* __restrict__ entry_vec, int* fits, int M, int N,
-                  int R, int nnz) {
+                  const int* __restrict__ entry_vec, int* fits,
+                  int* __restrict__ work, int M, int N, int R, int nnz) {
   __shared__ int s_diff[kSharedM];
   __shared__ int s_warp[kWarps];
   __shared__ int s_base;
@@ -91,10 +97,19 @@ ebf_shadow_kernel(const int* __restrict__ avail, const int* __restrict__ req,
   int bad = 0;
   for (int n = tid; n < N; n += kThreads) {
     int cum[kMaxR];
+    int* wc = nullptr;                    // kWide: node n's running sums
+    int ok;
+    if constexpr (kWide) {
+      wc = work + static_cast<long long>(n) * R;
+      for (int r = 0; r < R; ++r)
+        wc[r] = avail[static_cast<long long>(n) * R + r];
+      ok = alloc_fit::fits(wc, req, R);
+    } else {
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r)
-      cum[r] = (r < R) ? avail[static_cast<long long>(n) * R + r] : 0;
-    int ok = fit_of(cum, q, R);
+      for (int r = 0; r < kMaxR; ++r)
+        cum[r] = (r < R) ? avail[static_cast<long long>(n) * R + r] : 0;
+      ok = fit_of(cum, q, R);
+    }
     base += ok;
     const int begin = node_ptr[n];
     const int end = node_ptr[n + 1];
@@ -111,11 +126,19 @@ ebf_shadow_kernel(const int* __restrict__ avail, const int* __restrict__ req,
       }
       prev = m;
       const int* v = entry_vec + static_cast<long long>(e) * R;
+      if constexpr (kWide) {
+        for (int r = 0; r < R; ++r) wc[r] += v[r];
+      } else {
 #pragma unroll
-      for (int r = 0; r < kMaxR; ++r)
-        if (r < R) cum[r] += v[r];
+        for (int r = 0; r < kMaxR; ++r)
+          if (r < R) cum[r] += v[r];
+      }
       if (e + 1 == end || entry_m[e + 1] != m) {   // last entry of group m
-        const int now = fit_of(cum, q, R);
+        int now;
+        if constexpr (kWide)
+          now = alloc_fit::fits(wc, req, R);
+        else
+          now = fit_of(cum, q, R);
         if (now != ok) {
           atomicAdd(diff + m, now - ok);
           ok = now;
@@ -157,19 +180,23 @@ ebf_shadow_kernel(const int* __restrict__ avail, const int* __restrict__ req,
 // kSharedM, for the tests that drive the global-memory branch
 extern "C" int ebf_shadow_shared_m() { return kSharedM; }
 
+// work: int32[N * R] scratch when R > kMaxR (8; else unused, may be null)
 extern "C" int ebf_shadow_launch(const void* avail, const void* req,
                                  const void* node_ptr, const void* entry_m,
-                                 const void* entry_vec, void* fits, int M,
-                                 int N, int R, int nnz, int device,
-                                 void* stream) {
-  if (R < 1 || R > kMaxR || M < 1 || N < 0 || nnz < 0)
+                                 const void* entry_vec, void* fits,
+                                 void* work, int M, int N, int R, int nnz,
+                                 int device, void* stream) {
+  if (R < 1 || M < 1 || N < 0 || nnz < 0 ||
+      (R > kMaxR && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ebf_shadow_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = R > kMaxR ? ebf_shadow_kernel<true>
+                                : ebf_shadow_kernel<false>;
+  kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(avail), static_cast<const int*>(req),
       static_cast<const int*>(node_ptr), static_cast<const int*>(entry_m),
-      static_cast<const int*>(entry_vec), static_cast<int*>(fits), M, N, R,
-      nnz);
+      static_cast<const int*>(entry_vec), static_cast<int*>(fits),
+      static_cast<int*>(work), M, N, R, nnz);
   return static_cast<int>(cudaGetLastError());
 }

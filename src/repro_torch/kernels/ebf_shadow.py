@@ -29,8 +29,9 @@ import torch
 
 from . import build, counters, ref
 
-#: largest resource-type count the kernel keeps in registers
-MAX_R = 8
+#: resource types the kernel keeps in registers; past this many it takes
+#: a scratch of the nodes' running sums, int32[N, R]
+REGISTER_R = 8
 
 
 def shared_m() -> int:
@@ -70,18 +71,19 @@ def ebf_shadow(avail: torch.Tensor, node_ptr: torch.Tensor,
     if not build.launch_target(dev):
         return ref.ebf_shadow_sparse_ref(avail, node_ptr, entry_m, entry_vec,
                                          req, m)
-    if r > MAX_R:
-        raise ValueError(f"ebf_shadow kernel takes R <= {MAX_R}, got {r}")
     fits = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return fits
+    work = torch.empty((n * r,), dtype=torch.int32, device=dev) \
+        if r > REGISTER_R else None
     lib = build.library("ebf_shadow")
     index = build.device_index(dev)
     stream = torch.cuda.current_stream(index).cuda_stream
     build.check(lib.ebf_shadow_launch(
         avail.data_ptr(), req.data_ptr(), node_ptr.data_ptr(),
-        entry_m.data_ptr(), entry_vec.data_ptr(), fits.data_ptr(), m, n, r,
-        nnz, index, stream), "ebf_shadow")
+        entry_m.data_ptr(), entry_vec.data_ptr(), fits.data_ptr(),
+        None if work is None else work.data_ptr(), m, n, r, nnz, index,
+        stream), "ebf_shadow")
     counters.record_device("ebf_shadow")
     return fits
 

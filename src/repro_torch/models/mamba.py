@@ -50,6 +50,31 @@ def _causal_depthwise_conv(u: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
+def _dt_product(dt_r: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``dt_r @ w`` (``dt_r [..., dtr]``, ``w [dtr, di]``).  DTensors (the
+    dry-run) multiply on each device's shards, as the depthwise conv does:
+    ``dt_r`` keeps its batch shards and is gathered (summed, where it is a
+    partial sum) along the rest, ``w`` keeps its channel shards on the
+    mesh dims that do not shard the batch, and the product is sharded
+    like both.  DTensor's own placement of this product needs a
+    redistribution that some torch versions do not have."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(dt_r, DTensor):
+        return dt_r @ w
+    mesh = dt_r.device_mesh
+    wpl = w.placements if isinstance(w, DTensor) else \
+        (Replicate(),) * mesh.ndim
+    xp = tuple(Shard(0) if p == Shard(0) else Replicate()
+               for p in dt_r.placements)
+    wp = tuple(Shard(1) if p == Shard(1) and x != Shard(0) else Replicate()
+               for p, x in zip(wpl, xp))
+    out = tuple(x if x == Shard(0) else
+                Shard(dt_r.ndim - 1) if p == Shard(1) else Replicate()
+                for x, p in zip(xp, wp))
+    prod = local_shard(dt_r, mesh, xp) @ local_shard(w, mesh, wp)
+    return DTensor.from_local(prod, mesh, out, run_check=False)
+
+
 def mamba_mixer(
     x: torch.Tensor,                    # [B, T, d] (post-norm)
     p: Mapping[str, torch.Tensor],
@@ -72,7 +97,7 @@ def mamba_mixer(
         u1 = torch.einsum("bcd,dc->bd", conv_in, p["conv_w"]) + p["conv_b"]
         u1 = F.silu(u1)                                  # [B, di]
         dt_r, B_s, C_s = torch.split(u1 @ p["x_proj"], split, dim=-1)
-        dt = F.softplus(dt_r @ p["dt_proj_w"] + p["dt_proj_b"])
+        dt = F.softplus(_dt_product(dt_r, p["dt_proj_w"]) + p["dt_proj_b"])
         dt = dt.to(torch.float32)[..., None]             # [B, di, 1]
         uf = u1.to(torch.float32)
         h = torch.exp(dt * A) * cache.ssm \
@@ -86,8 +111,7 @@ def mamba_mixer(
         u1 = F.silu(_causal_depthwise_conv(u, p["conv_w"], p["conv_b"]))
         dt_r, B_s, C_s = torch.split(u1 @ weight_for(u1, p["x_proj"]),
                                      split, dim=-1)
-        dt = F.softplus(dt_r @ weight_for(dt_r, p["dt_proj_w"])
-                        + p["dt_proj_b"])
+        dt = F.softplus(_dt_product(dt_r, p["dt_proj_w"]) + p["dt_proj_b"])
         y, h_last = ops.selective_scan(u1, dt, A, B_s.contiguous(),
                                        C_s.contiguous(), p["D"])
         y = y.to(x.dtype)

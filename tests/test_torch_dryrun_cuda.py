@@ -4,6 +4,8 @@
   with sharding rules active as without (``shard`` acts only on
   DTensors, so the card path is unchanged), and within 1e-4 of the CPU's
   (float32, TF32 off).
+* The falcon-mamba-7b and Jamba cells dry-run on the fake 4 × 2 mesh
+  under the card machine's torch.
 * ``chip_smoke.py`` phase 17's check at the qwen3-1.7b smoke config: a
   train step at 16 × 2048 tokens dry-run on a 1 × 1 mesh of the fake
   world, then the same step on the card (2 warm, 5 timed): the measured
@@ -100,3 +102,24 @@ def test_dryrun_bounds_a_smoke_train_step_on_the_card(cuda_dev):
     peak = torch.cuda.max_memory_allocated()
     assert statistics.median(secs[2:]) >= rec["roofline"]["compute_s"]
     assert rec["memory"]["per_device_bytes"] >= peak / 2
+
+
+#: the Mamba and hybrid cells of the dry-run on its 4 x 2 mesh: train,
+#: prefill and decode (where the SSM's dt product runs on local shards)
+MAMBA_CELLS = [("falcon-mamba-7b", "train_4k", "stub"),
+               ("falcon-mamba-7b", "prefill_32k", "ref"),
+               ("falcon-mamba-7b", "decode_32k", "ref"),
+               ("jamba-1.5-large-398b", "train_4k", "ref"),
+               ("jamba-1.5-large-398b", "prefill_32k", "ref")]
+
+
+@pytest.mark.parametrize("arch,shape,scan", MAMBA_CELLS)
+def test_mamba_cells_dry_run_on_the_small_mesh(arch, shape, scan, cuda_dev):
+    """The falcon-mamba-7b and Jamba smoke cells trace on the fake 4 x 2
+    mesh under the torch of the machine with the card (the dry-run runs
+    on ``meta`` tensors; it launches nothing there)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_cell(arch, shape, "debug", "baseline", smoke=True,
+                          scan_impl=scan)
+    assert rec["ok"], rec.get("traceback")
+    assert rec["chips"] == 8 and rec["hlo"]["flops_per_device"] > 0

@@ -10,9 +10,13 @@ hard: a queue over a thousand deep (the lists fill, compact and run
 empty), a host snapshot whose rows are already running and queued when
 the kernel starts, failures re-ranking victims behind a long queue, a
 host snapshot under failures (victims without a rank, which the
-reference orders its own way), and more nodes than threads.
-``tests/test_torch_fleet_deep.py`` holds ``advance_plain`` against the reference on the same cases.  Imports no
-JAX, so it runs on a GPU machine with the port alone::
+reference orders its own way), and more nodes than threads; then
+systems past the kernel's fast paths (2049 to 40,960 nodes, 2048 nodes x
+8 types, 9 types), on both tiers of its node arrays, with failures and
+telemetry on the global one.  ``tests/test_torch_fleet_deep.py`` and
+``tests/test_torch_fleet_wide.py`` hold ``advance_plain`` against the
+reference on the same cases.  Imports no JAX, so it runs on a GPU machine
+with the port alone::
 
     python -m pytest -q -m cuda tests/test_torch_fleet_kernel.py
 
@@ -31,7 +35,7 @@ from repro_torch.fleet import (ALLOC_BF, ALLOC_FF, SCHED_EBF, SCHED_FIFO,
                                SCHED_LJF, SCHED_SJF, FleetRunner, SimState,
                                advance, advance_plain, stack, unstack)
 from repro_torch.fleet.state import INF_I, QUEUED, RUNNING
-from repro_torch.kernels import counters
+from repro_torch.kernels import build, counters
 from repro_torch.workloads.synthetic import SyntheticWorkload
 
 SYS = {"groups": {"a": {"core": 4, "mem": 1024}, "b": {"core": 8, "mem": 2048}},
@@ -158,6 +162,62 @@ def wide_states(n=400):
                            (SCHED_LJF, ALLOC_BF))]
 
 
+def large_system(n_nodes, r):
+    """Two node groups (3/5 and 2/5 of ``n_nodes``, unequal capacities so
+    Best-Fit loads differ) with ``r`` resource types: core, mem, then
+    r2, r3, ..."""
+    extra = [f"r{i}" for i in range(2, r)]
+    a = {"core": 4, "mem": 2048, **{x: 2 + i for i, x in enumerate(extra)}}
+    b = {"core": 8, "mem": 4096, **{x: 4 + i for i, x in enumerate(extra)}}
+    names = ["core", "mem"][:r] + extra
+    na = n_nodes * 3 // 5
+    return {"groups": {"a": {k: a[k] for k in names},
+                       "b": {k: b[k] for k in names}},
+            "nodes": {"a": na, "b": n_nodes - na}}
+
+
+def large_workload(n_nodes, r, n_jobs, seed=17):
+    """Jobs of 1 node to half the system, arriving faster than they end,
+    asking at most what a group-a node holds."""
+    extra = {f"r{i}": (0, i) for i in range(2, r)}
+    res = {"core": (1, 4), "mem": (64, 2048), **extra}
+    res = dict(list(res.items())[:r])
+    weights = {1: 0.3, max(2, n_nodes // 64): 0.3, max(3, n_nodes // 8): 0.2,
+               max(4, n_nodes // 2): 0.2}
+    return SyntheticWorkload(
+        n_jobs, seed=seed, mean_interarrival_s=20.0,
+        duration_median_s=900.0, duration_sigma=1.1, node_weights=weights,
+        resources=res)
+
+
+#: node count, resource types, jobs: past the register keys (2049, 4096,
+#: 40,960 nodes), past shared memory (2048 x 8, 40,960), past the
+#: unrolled types (R 9, 10)
+LARGE = {"n2049": (2049, 2, 60), "n4096": (4096, 2, 80),
+         "n40960": (40960, 2, 40), "n2048_r8": (2048, 8, 60),
+         "n64_r9": (64, 9, 80), "n64_r10": (64, 10, 80)}
+LARGE_POLICIES = [(SCHED_EBF, ALLOC_BF), (SCHED_EBF, ALLOC_FF),
+                  (SCHED_FIFO, ALLOC_FF), (SCHED_LJF, ALLOC_BF)]
+
+
+def large_states(case, policies=LARGE_POLICIES, failures=False):
+    """The policies on a ``LARGE`` case's system; with ``failures`` a
+    FAIL/REPAIR schedule with checkpoint credit, a quarantine and
+    telemetry every 3 events."""
+    n_nodes, r, n_jobs = LARGE[case]
+    kw = {}
+    if failures:
+        kw = dict(failures=FailureInjector(n_nodes, mtbf_s=150.0 * n_nodes,
+                                           repair_s=900.0, horizon_s=3000,
+                                           seed=3),
+                  quarantine_s=300, ckpt_every_s=600, telemetry_stride=3)
+    return [FleetRunner.build(f"{case}-{sc}-{ac}",
+                              large_workload(n_nodes, r, n_jobs),
+                              large_system(n_nodes, r), sc, alloc_id=ac,
+                              job_factory=JobFactory(), **kw).state
+            for sc, ac in policies]
+
+
 def assert_states_equal(got: SimState, want: SimState, what=""):
     bad = [k for k in SimState._fields
            if not np.array_equal(np.asarray(getattr(got, k)),
@@ -231,6 +291,36 @@ def test_fleet_kernel_midsim_snapshot_under_failures(cuda_dev, tmp_path):
 @pytest.mark.cuda
 def test_fleet_kernel_more_nodes_than_threads(cuda_dev):
     _equal_to_plain(wide_states(), cuda_dev, True, "600 nodes")
+
+
+def _tier_bytes(dev, n, r):
+    """Dynamic shared memory of a launch at N x R: 0 on the global tier."""
+    lib = build.library("fleet_engine")
+    return lib.fleet_engine_shared_bytes(n, r, build.device_index(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("case", ["n2049", "n4096", "n40960", "n2048_r8",
+                                  "n64_r9"])
+def test_fleet_kernel_large_systems(cuda_dev, case, use_kernel):
+    """Past the register keys (2049, 4096, 40,960 nodes), past one block's
+    shared memory (2048 x 8 and 40,960 nodes: the global tier) and past
+    the unrolled types (R 9): EBF-BF, EBF-FF, FIFO-FF and LJF-BF in one
+    launch, each equal to its plain run."""
+    n, r, _ = LARGE[case]
+    global_tier = case in ("n40960", "n2048_r8")
+    assert (_tier_bytes(cuda_dev, n, r) == 0) == global_tier
+    _equal_to_plain(large_states(case), cuda_dev, use_kernel, case)
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_global_tier_under_failures(cuda_dev):
+    """2048 nodes x 8 types on the global tier under a failure schedule
+    with checkpoint credit, a quarantine and telemetry."""
+    assert _tier_bytes(cuda_dev, 2048, 8) == 0
+    states = large_states("n2048_r8", failures=True)
+    _equal_to_plain(states, cuda_dev, True, "2048 x 8, failures")
 
 
 @pytest.mark.cuda

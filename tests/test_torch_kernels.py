@@ -615,22 +615,52 @@ def test_ebf_shadow_cuda_marks_malformed_releases(cuda, mutate):
     assert torch.equal(fits.cpu(), tref.ebf_shadow_sparse_ref(*args, 2).cpu())
 
 
-def _zeros_on(dev):
-    return lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [9, 12, 16])
+def test_ebf_shadow_cuda_wide_r_equals_plain(cuda, r):
+    """Past the 8 types the kernel keeps in registers (the running sums in
+    a scratch row per node): counts equal to the plain version, with
+    negative deltas, more nodes than threads and a malformed input."""
+    rng = np.random.default_rng(r)
+    for n, n_rel, n_times in ((40, 30, 3), (1500, 400, 50)):
+        avail, _ = _system(n, r, rng=rng, floor=4)
+        rel = t_ebf.sparse_releases(n, _release_tuples(
+            rng, n, r, n_rel, n_times, 6, -1))
+        m = rel.times.shape[0]
+        req = rng.integers(0, 5, (r,)).astype(np.int32)
+        args = [x.to(cuda) for x in (_t(avail), *_sparse_t(rel, r), _t(req))]
+        counters.reset_device_launches()
+        fits = t_ebf.ebf_shadow(*args, m)
+        torch.cuda.synchronize()
+        assert counters.device_launch_stats() == {"ebf_shadow": 1}
+        assert torch.equal(fits.cpu(),
+                           tref.ebf_shadow_sparse_ref(*args, m).cpu())
+    args[2][-1] = m                      # a group index of M: malformed
+    fits = t_ebf.ebf_shadow(*args, m)
+    assert torch.equal(fits.cpu(), torch.full((m,), -1, dtype=torch.int32))
 
 
 @pytest.mark.cuda
-def test_ebf_shadow_cuda_refuses_wide_r(cuda):
-    r, z = t_ebf.MAX_R + 1, _zeros_on(cuda)
-    with pytest.raises(ValueError):
-        t_ebf.ebf_shadow(z(4, r), z(5), z(0), z(0, r), z(r), 2)
-
-
-@pytest.mark.cuda
-def test_alloc_score_cuda_refuses_wide_r(cuda):
-    r, z = t_alloc.MAX_R + 1, _zeros_on(cuda)
-    with pytest.raises(ValueError):
-        t_alloc.alloc_score_batch(z(4, r), z(4, r), z(2, r))
+@pytest.mark.parametrize("r", [9, 12, 16])
+def test_alloc_score_cuda_wide_r_equals_plain(cuda, r):
+    """Past the 8 types the kernel unrolls (the generic instance): fit
+    bits and the float32 score bitwise equal to the packed plain version,
+    batched and per job, with ragged N and -1-floored rows."""
+    rng = np.random.default_rng(r)
+    for j, n in ((37, 33), (1000, 1025), (1, 4097)):
+        avail, cap = _system(n, r, rng=rng, floor=3)
+        req = rng.integers(0, 6, (j, r)).astype(np.int32)
+        req[::3, 0] = 0
+        a, c, q = (_t(x).to(cuda) for x in (avail, cap, req))
+        counters.reset_device_launches()
+        got = t_alloc.alloc_score_batch(a, c, q)
+        one = t_alloc.alloc_score(a, c, q[0])
+        torch.cuda.synchronize()
+        assert counters.device_launch_stats() == {"alloc_score_batch": 1,
+                                                  "alloc_score": 1}
+        want = tref.alloc_score_packed_ref(a, c, q)
+        _assert_packed_equal(got, want)
+        _assert_packed_equal(one, (want[0][0], want[1]))
 
 
 @pytest.mark.cuda
