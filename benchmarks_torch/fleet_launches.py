@@ -11,9 +11,9 @@ checkout's by default), so that an earlier commit unpacked with ``git
 archive`` can be timed in the same call as this one; each tree builds
 its kernels into its own ``build/``.  The grids are chip_smoke.py's
 phases 8 and 9: the Seth grid (the 8 Table-2 policies x 16 seeds of the
-Seth stream, 128 sims of 10,000 jobs on 120 nodes) and the RICC-sized
-system (the 8 policies, 5,000 jobs on 1024 nodes), every sim to its
-end.  A warm-up run of the Seth grid's seed 0 (its 8 sims) first makes
+Seth stream, 128 sims of 10,000 jobs on 120 nodes; the smoke runs it at
+4,000 jobs a sim) and the RICC-sized system (the 8 policies, 5,000 jobs
+on 1024 nodes), every sim to its end.  A warm-up run of the Seth grid's seed 0 (its 8 sims) first makes
 the CUDA context and loads the kernel, as chip_smoke.py's earlier phases
 have when it times the grid.  Each grid then runs once through
 ``FleetRunner().run`` (its wall gives the grid's events/s, stacking and
@@ -32,6 +32,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# jobs a sim of the Seth grid, as this script has always timed it
+SETH_GRID_JOBS = 10_000
 
 
 def main() -> int:
@@ -70,7 +72,7 @@ def main() -> int:
     build.library("fleet_engine")
     seth = [sim for seed in range(cs.FLEET_SEEDS)
             for sim in cs.policy_sims(FleetRunner.build(
-                "seth", cs.seth_jobs(cs.SETH_JOBS, seed), cs.SETH,
+                "seth", cs.seth_jobs(SETH_GRID_JOBS, seed), cs.SETH,
                 SCHED_FIFO, seed=seed), seed, f"-s{seed}")]
     ricc = cs.policy_sims(FleetRunner.build(
         "ricc", cs.ricc_jobs(Job, cs.RICC_JOBS), cs.RICC, SCHED_FIFO))

@@ -10,9 +10,10 @@ and drives the simulator's main path on the card:
 
 1. card: name and power limit, torch and CUDA versions, kernel build
    (ptxas registers and spills; the scan's registers, shared memory and
-   resident warps per SM);
+   resident warps per SM); the fleet engine's two libraries build in a
+   thread while phases 2-7 run, and phase 8 waits for them;
 2. Seth (the paper's Fig. 7 system, 120 nodes x 4 cores x 1 GB) with a
-   Seth-like stream of 10,000 jobs: the 8 vectorized Table-2 rows and
+   Seth-like stream of 4,000 jobs: the 8 vectorized Table-2 rows and
    the per-job FIFO-vFF row on CUDA, each against its numpy twin;
 3. a RICC-sized system (1024 nodes x 8 cores x 12 GB) with 5,000 jobs
    submitted within the first hour, so the queue is thousands of jobs
@@ -44,8 +45,9 @@ and drives the simulator's main path on the card:
    into its slot, decode steps of all slots; prefill and decode
    tokens/s and peak memory.  Each request's tokens equal greedy
    generation of its prompt alone at the loop's batch of 4 rows, and
-   how many equal ``greedy_generate`` at batch 1 is logged (bf16
-   products at 1 and 4 rows round apart);
+   for one request of each prompt length whether ``greedy_generate`` at
+   batch 1 gives the same is logged (bf16 products at 1 and 4 rows round
+   apart);
 6. the ``selective_scan`` kernel against its plain version on the
    largest inputs the serve run gave it (bf16) plus ragged S, Di and L in
    float32, bf16 and fp16, within 1e-4, with its times and bound; and
@@ -97,7 +99,7 @@ and drives the simulator's main path on the card:
    neither 5f nor 5g launches a kernel of the port;
 8. the fleet engine (``fleet_engine``, one thread block per sim): the
    Seth grid, the 8 Table-2 policies x 16 seeds of the Seth stream (128
-   sims of 10,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
+   sims of 4,000 jobs) in one ``FleetRunner().run``; seed 0 equal to
    phase 2's numpy twins job by job and in the summary counters, every
    sim's invariants, two lanes equal to their solo launches; events/s,
    the twins' events/s and the device busy share; then each of the
@@ -106,7 +108,7 @@ and drives the simulator's main path on the card:
    sim) and equal to the run's finals;
 9. the 8 policies on the RICC-sized system (5,000 jobs): the 6 blocking
    rows to the end against numpy twins, the EBF rows against twins cut
-   at 150 events (phase 3's EBF-BF twin, a new EBF-FF one); its two
+   at 60 events (phase 3's EBF-BF twin, a new EBF-FF one); its two
    launches timed as in phase 8;
 10. Seth under a seeded FAIL/REPAIR schedule with checkpoint credit, a
    quarantine and telemetry: FIFO-FF and EBF-BF equal to the host
@@ -132,16 +134,17 @@ and drives the simulator's main path on the card:
    and summary counters equal to the same dispatcher's through
    ``Experiment(use_fleet=False)`` on the host; then the reference
    example's three vectorized rows (FIFO-vFF, FIFO-vBF, vEBF-vFF) through
-   an ``Experiment`` on the card, each output byte-equal to its numpy
-   twin's;
-13. a policy study: ``Experiment`` over the 8 policies x 8 repeats of a
-   10,000-job ``SyntheticWorkload`` on Seth, one ``run_simulation`` (64
+   an ``Experiment`` on the card, on the stream's first 3,000 jobs, each
+   output byte-equal to its numpy twin's on those jobs;
+13. a policy study: ``Experiment`` over the 8 policies x 4 repeats of a
+   5,000-job ``SyntheticWorkload`` on Seth, one ``run_simulation`` (32
    sims, 2 ``fleet_engine`` launches): every row's invariants, engine
    and seed, FIFO-FF r0 and EBF-BF r0 equal to host twins; the wall
    split into planning and ``FleetRunner.build``, ``FleetRunner.run``,
    ``FleetResult.write_outputs`` and ``summaries.json``, and the device
    busy share of the whole ``run_simulation`` (profiler).  The host
-   twins of phases 12-13 run in worker processes meanwhile;
+   twins of phases 8-13 run in one pool of worker processes, queued
+   before phase 8 (the fleet's first), while the card runs phases 8-13;
 14. the benchmark modes through their entry points, on the card, each
    with its own refusal (``REPO_ROOT`` in a temporary directory):
    ``bench_dispatch.run(quick=True)`` (the three engines agree on
@@ -161,9 +164,10 @@ and drives the simulator's main path on the card:
    uninterrupted run; then falcon-mamba-7b at full width cut to 8
    layers, bf16, Bt 2 x L 512: exactly layers x 2 ``selective_scan``
    launches a ``remat="full"`` step and layers x micro-batches a
-   ``"none"`` step, step time, tokens/s, peak memory, the plain VJP's
-   share of a step (timed) and the scan kernel's (profiler); the scan
-   against its plain version at the training shape;
+   ``"none"`` step, and layers x micro-batches ``selective_scan_bwd``
+   launches either way, step time, tokens/s, peak memory, the scan
+   backward's share of a step (timed) and the two kernels' (profiler);
+   the scan against its plain version at the training shape;
 16. training consistency: falcon-mamba-7b and smollm-360m at full width
    cut to 2 layers, and the qwen3-moe (2 layers), Jamba (8 layers),
    internvl2-76b and whisper-medium smoke configs (``make_batch_for``'s
@@ -171,7 +175,19 @@ and drives the simulator's main path on the card:
    micro-batches) on the card against the port on the CPU from the same
    parameters and data: loss within 1e-4, grads within 1e-3 of each
    leaf's max |g|, parameters within 1e-4; the MoE tokens whose top-k
-   sets agree between the two sides are counted;
+   sets agree between the two sides are counted; the card's step
+   launches exactly Mamba layers x micro-batches x 2 ``selective_scan``
+   and Mamba layers x micro-batches ``selective_scan_bwd``;
+6c. (after 16) the backward kernel (``selective_scan_bwd``) against the
+   plain backward (``selective_scan_bwd_ref``) and autograd of the plain
+   forward: edge cases (S 5, 16 and 32, L 1, 37 and 1000, Di 77, 64 and
+   4001, float32, bf16, fp16 and mixed types, h_last used or not) through
+   the scan's autograd, then phase 15b's and phase 16's Jamba largest
+   scan inputs through the wrapper; each gradient within 1e-4 (float32),
+   1e-2 (bf16) or 1e-3 (fp16) of its largest magnitude in either plain
+   version, two runs bitwise equal; its time, device time (phase 15a's
+   fresh process), the plain backward's and the plain VJP's time, and its
+   bound;
 15c. (after 16) qwen3-moe-30b-a3b at full width cut to 4 layers (~3.1B
    parameters), bf16, 10 steps of the copy task at batch 8 x 512 with
    ``remat="full"``: finite losses that fall, step time, tokens/s and
@@ -186,7 +202,7 @@ and drives the simulator's main path on the card:
    step at full size (28 layers, bf16) at 4 x 4096 tokens, 1
    micro-batch, ``remat="full"``, on a 1 x 1 mesh, and (b) phase 5's two
    falcon-mamba-7b prefills (4 x 512, 4 x 1000) with the scan as
-   ``"stub"`` and as ``"ref"``; meanwhile the smoke runs 2 warm and 5
+   ``"stub"`` and as ``"ref"``; meanwhile the smoke runs 1 warm and 3
    timed steps of (a) on the card from random weights of a seeded
    generator.  It logs the median step, the peak memory, the dry-run's
    ``compute_s``, ``memory_s``, bound and per-device bytes, and each
@@ -195,14 +211,17 @@ and drives the simulator's main path on the card:
    logs both bounds beside phase 5's measured prefill times and fails if
    a prefill took less than the stub's ``compute_s``.
 
-Phases 15-16 run right after phase 7: once the fleet phases have run,
+Phases 15-16 and 6c run right after phase 7: once the fleet phases have run,
 the profiler records none of this process's kernels (phase 11 profiles
-in a fresh process for that reason).
+in a fresh process for that reason).  Phase 11b runs between phase 9's
+fleet runs and phase 9's checks against its numpy twins, which worker
+processes are still computing then.
 
 The per-event dispatch traces of every vectorized row must equal its
 numpy twin's, launches per event must stay within the batched contract,
 and every kernel must have launched on its own path (the dispatch
-kernels on phases 2-3, ``selective_scan`` on phases 5, 5e and 15,
+kernels on phases 2-3, ``selective_scan`` on phases 5, 5e, 15 and 16,
+``selective_scan_bwd`` on phases 15 and 16,
 ``fleet_engine`` on phases 8-10, 11b and on each of 12 and 13,
 ``alloc_score_batch`` and ``ebf_shadow`` on phase 12's vectorized rows,
 the four kernels but the scan on phase 14; each path's counts are set
@@ -214,6 +233,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
 import gc
@@ -289,9 +309,11 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 
 RICC = {"groups": {"ricc": {"core": 8, "mem": 12288}},
         "nodes": {"ricc": 1024}}
-SETH_JOBS = 10_000
+# the Seth stream's depth: 4,000 jobs (about four days of arrivals) keeps
+# the smoke within half its time limit
+SETH_JOBS = 4_000
 RICC_JOBS = 5_000
-RICC_MAX_EVENTS = 150
+RICC_MAX_EVENTS = 60
 # an Intrepid-sized system: ANL Intrepid (Blue Gene/P) in the Parallel
 # Workloads Archive, 40,960 nodes of 4 cores and 2 GB
 INTREPID = {"groups": {"intrepid": {"core": 4, "mem": 2048}},
@@ -318,6 +340,9 @@ MAMBA_TRAIN_LAYERS = 8
 MAMBA_TRAIN_BT, MAMBA_TRAIN_L = 2, 512
 MAMBA_TRAIN_RUNS = (("full", 1), ("none", 2))
 MAMBA_TRAIN_STEPS = {"full": 3, "none": 1}
+# phase 16: one step of batch 2 x 64 in 2 micro-batches; there Jamba's
+# smoke config scans Bt 1 x L 64 x its d_inner x its states, float32
+CONSIST_BATCH, CONSIST_SEQ, CONSIST_MB = 2, 64, 2
 # the moe and hybrid families at full width: qwen3-moe at full size with
 # phase 5b's traffic; llama4-maverick cut to one period (a dense layer,
 # then a MoE layer with its shared expert: 37 GB); Jamba cut to one
@@ -330,6 +355,9 @@ MAVERICK_PROMPTS, MAVERICK_NEW_TOKENS = (512,) * SERVE_SLOTS, 16
 JAMBA_ARCH = "jamba-1.5-large-398b"
 JAMBA_CUTS = {"n_layers": 8, "moe_d_ff": 3072}
 JAMBA_PROMPTS, JAMBA_NEW_TOKENS = (512, 512, 1024, 1024), 16
+JAMBA_TRAIN_SCAN = (CONSIST_BATCH // CONSIST_MB, CONSIST_SEQ,
+                    get_config(JAMBA_ARCH, smoke=True).d_inner,
+                    get_config(JAMBA_ARCH, smoke=True).ssm_state)
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 10
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 8, 512
 # the vlm and audio families: internvl2-76b at full width cut to 8 of 80
@@ -359,13 +387,20 @@ KERNELS = {
                    "src/repro/kernels/ebf_shadow.py:60", "dispatch"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:61", "mamba"),
+    # the reference's backward: jax.vjp of its oracle's lax.scan
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/ops.py:145", "mamba"),
     "fleet_engine": ("src/repro_torch/kernels/csrc/fleet_engine.cuh",
                      "src/repro/fleet/engine.py:423", "fleet"),
 }
 DISPATCH_KERNELS = {k for k, v in KERNELS.items() if v[2] == "dispatch"}
+# the fleet engine's sources (its fast instances and the global tier)
+FLEET_SOURCES = ("fleet_engine", "fleet_engine_wide")
 # device-side function names, as the profiler reports them
 DEVICE_NAMES = {"alloc_score_kernel", "ebf_shadow_kernel",
-                "selective_scan_kernel", "fleet_engine_kernel"}
+                "selective_scan_kernel", "scan_bwd_kernel", "scan_bwd_reduce",
+                "fleet_engine_kernel"}
 
 # the fleet: the 8 Table-2 policies, the Seth grid's seeds, the golden
 # scenario of the reference's fleet tests, and the failure schedule
@@ -383,8 +418,11 @@ QUARANTINE_S, CKPT_EVERY_S, TELE_STRIDE = 3600, 1800, 50
 # the Experiment phases: the Table-2 study (benchmarks_torch's own size
 # and seed) and a policy study of a synthetic workload on Seth
 TABLE2_JOBS, TABLE2_SEED = 8_000, 2
-# 8 repeats: within the smoke's time limit beside phase 11b
-STUDY_JOBS, STUDY_SEED, STUDY_REPEATS = 10_000, 100, 8
+# the reference example's vectorized rows (host sims that launch per
+# event) run the first 3,000 jobs of that stream
+TABLE2_VX_JOBS = 3_000
+# 4 repeats of 5,000 jobs: within half the smoke's time limit
+STUDY_JOBS, STUDY_SEED, STUDY_REPEATS = 5_000, 100, 4
 STUDY_WL = dict(mean_interarrival_s=45.0, duration_median_s=1300.0,
                 duration_sigma=1.5, resources={"core": (1, 4),
                                                "mem": (128, 1024)})
@@ -398,10 +436,18 @@ DRYRUN_CHILD_FLAG = "--dryrun-child"
 CARD_STEP_CHILD_FLAG = "--card-step-child"
 DRY_ARCH = "qwen3-1.7b"
 DRY_SHAPE = ShapeSpec("train_4x4096", 4096, 4, "train")
-DRY_WARM, DRY_STEPS = 2, 5
+DRY_WARM, DRY_STEPS = 1, 3
+
+
+T_START = time.perf_counter()
 
 
 def log(obj) -> None:
+    """One line of the log; a phase's line also carries ``at_s``, the
+    seconds since this process started, so the log shows where the
+    smoke's time limit goes."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
@@ -679,6 +725,17 @@ def bound(name, shapes):
         nbytes = (e * (2 * bt * length * di + 2 * bt * length * s)
                   + 4 * (bt * length * di + di * s + di + bt * di * s))
         ops = 6 * bt * length * di * s            # mul, 2 fma, mul, fma, add
+        t_exp = bt * length * di * s / SFU_EXP_PER_S
+    elif name == "selective_scan_bwd":
+        # reads u, delta, B, C (e bytes), gy, gh, A, D (float32); writes
+        # du, ddelta, dB, dC (e bytes), dA, dD (float32); one exponential
+        # and 14 operations per (b, t, d, s) (the walk back: G, h_{t-1} a,
+        # the ddelta, du, dB, dC and dA terms, the carry)
+        bt, length, di, s, e = shapes
+        nbytes = (e * 2 * (2 * bt * length * di + 2 * bt * length * s)
+                  + 4 * (bt * length * di + bt * di * s
+                         + 2 * (di * s + di)))
+        ops = 14 * bt * length * di * s
         t_exp = bt * length * di * s / SFU_EXP_PER_S
     else:                                         # fit bits + score [N]
         j, n, r = shapes
@@ -1038,6 +1095,18 @@ def scan_case(rng, dev, bt, length, di, s, dtype=torch.float32):
         for i, x in enumerate((u, dt, A, B, C, D)))
 
 
+def bwd_case(rng, dev, bt, length, di, s, dtype=torch.float32,
+             gh_zero=True):
+    """``scan_case``'s inputs and the cotangents of y (float32, normal)
+    and h_last (zeros, as a training step gives them, or normal)."""
+    gy = torch.from_numpy(rng.standard_normal((bt, length, di)).astype(
+        np.float32)).to(dev)
+    gh = torch.from_numpy(rng.standard_normal((bt, di, s)).astype(
+        np.float32)).to(dev)
+    return scan_case(rng, dev, bt, length, di, s, dtype) + (
+        gy, torch.zeros_like(gh) if gh_zero else gh)
+
+
 # (Bt, L, Di, S, type): S past the 4-state groups (1, 5, 13), Di past the
 # 64-channel tile and the 16-byte rows (77, 4001, 8190), L short of and
 # past the 32-step chunk (1, 3, 37, 1000), each input type
@@ -1070,6 +1139,128 @@ def check_scan(dev, served, launches):
                            a[2].shape[1], a[0].element_size()),
                        tol=1e-4, reps=20, plain_reps=2, plain_rounds=3,
                        plain_device_reps=2)
+
+
+# (Bt, L, Di, S, u/delta/B/C types, h_last used): S 5, 16 and 32 (two
+# launches), L 1 and past the 16-step chunks, Di 4001 and past the
+# 64-channel tile, every input type and a mix (cast to float32, each
+# gradient back to its input's type)
+BWD_MIXED = (torch.bfloat16, torch.bfloat16, torch.float16, torch.float32)
+BWD_CASES = ((2, 37, 64, 5, (torch.float32,) * 4, True),
+             (2, 37, 64, 16, (torch.bfloat16,) * 4, False),
+             (2, 130, 4001, 32, (torch.float16,) * 4, True),
+             (1, 1, 4001, 16, BWD_MIXED, True),
+             (3, 1, 77, 5, (torch.float32,) * 4, False),
+             (1, 1000, 77, 13, (torch.bfloat16,) * 4, True))
+#: each gradient within this share of its largest magnitude in the plain
+#: backward, by its dtype (narrow types: one unit of rounding apart)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+
+
+def scan_grads(run, args, gy, gh, with_h=True):
+    """The six scan inputs' gradients through ``run`` under autograd
+    (``with_h`` False: ``h_last`` unused)."""
+    xs = [x.detach().clone().requires_grad_() for x in args]
+    y, h = run(*xs)
+    torch.autograd.backward((y, h) if with_h else (y,),
+                            (gy, gh) if with_h else (gy,))
+    return [x.grad for x in xs]
+
+
+def hold_grads(label, got, again, wants):
+    """``got`` bitwise equal to ``again`` (a second run), and each
+    gradient in its input's dtype within ``GRAD_TOL`` of its largest
+    magnitude in every one of ``wants``: (largest absolute error, largest
+    error over that magnitude)."""
+    err = rel = 0.0
+    for i, (g, g2) in enumerate(zip(got, again)):
+        if not torch.equal(g, g2):
+            raise AssertionError(f"selective_scan_bwd ({label}): gradient "
+                                 f"{i} differs between two runs")
+        for w in wants:
+            if g.dtype != w[i].dtype or g.shape != w[i].shape:
+                raise AssertionError(f"selective_scan_bwd ({label}): "
+                                     f"gradient {i} {g.dtype}/{g.shape}, "
+                                     f"plain {w[i].dtype}/{w[i].shape}")
+            scale = max(float(w[i].abs().max()), 1e-30)
+            e = float((g.double() - w[i].double()).abs().max())
+            if e > GRAD_TOL[g.dtype] * scale:
+                raise AssertionError(f"selective_scan_bwd ({label}): "
+                                     f"gradient {i} off by {e}, over "
+                                     f"{GRAD_TOL[g.dtype]} of {scale}")
+            err, rel = max(err, e), max(rel, e / scale)
+    return err, rel
+
+
+def check_scan_bwd(dev, paths, launches, device):
+    """Phase 6c: the backward kernel's gradients (through autograd of
+    ``selective_scan``: forward and backward kernels) against the plain
+    backward (``selective_scan_bwd_ref``) and autograd of the plain
+    forward on ``BWD_CASES``; then, on each path's largest scan inputs
+    (``paths``: phase 15b's training, phase 16's Jamba step) with the
+    cotangents a step gives (y's, and zeros for the unused h_last), the
+    wrapper ``selective_scan_bwd`` against both, two runs bitwise equal,
+    its time, its device time (``device``, read in phase 15a's fresh
+    process), the plain backward's and the plain VJP's (what the card ran
+    before the kernel), and its bound.  Returns the kernel-table row of
+    the first path, with the launches of all (``launches``)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    for bt, length, di, s, types, with_h in BWD_CASES:
+        base = bwd_case(rng, dev, bt, length, di, s, gh_zero=not with_h)
+        args = tuple(x.to(t) for x, t in zip(base[:6], (
+            types[0], types[1], torch.float32, types[2], types[3],
+            torch.float32)))
+        gy, gh = base[6:]
+        got = scan_grads(k_scan.selective_scan, args, gy, gh, with_h)
+        again = scan_grads(k_scan.selective_scan, args, gy, gh, with_h)
+        hold_grads(f"Bt {bt} L {length} Di {di} S {s}", got, again, (
+            ref.selective_scan_bwd_ref(*args, gy, gh),
+            scan_grads(ref.selective_scan_ref, args, gy, gh, with_h)))
+    log({"phase": "kernel", "name": "selective_scan_bwd",
+         "check": "edge cases within GRAD_TOL, bitwise repeatable",
+         "cases": [[bt, length, di, s, [str(t) for t in types], with_h]
+                   for bt, length, di, s, types, with_h in BWD_CASES]})
+    row = None
+    for path, inputs in paths.items():
+        u = inputs[0]
+        gy = torch.from_numpy(rng.standard_normal(tuple(u.shape)).astype(
+            np.float32)).to(dev)
+        gh = torch.zeros((u.shape[0], u.shape[2], inputs[2].shape[1]),
+                         dtype=torch.float32, device=dev)
+        args = tuple(inputs) + (gy, gh)
+        kernel = lambda: k_scan.selective_scan_bwd(*args)
+        err, rel = hold_grads(path, kernel(), kernel(), (
+            ref.selective_scan_bwd_ref(*args),
+            scan_grads(ref.selective_scan_ref, inputs, gy, gh)))
+        shapes = tuple(u.shape) + (inputs[2].shape[1], u.element_size())
+        ms = time_ms(kernel, 20)
+        plain_ms = time_ms(lambda: ref.selective_scan_bwd_ref(*args), 1, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan_grads(ref.selective_scan_ref, inputs, gy, gh)
+        torch.cuda.synchronize()
+        vjp_ms = (time.perf_counter() - t0) * 1e3
+        b_ms, b_by = bound("selective_scan_bwd", shapes)
+        log({"phase": "kernel", "name": "selective_scan_bwd", "path": path,
+             "shape": list(shapes), "dtype": str(u.dtype),
+             "cases": len(BWD_CASES) + len(paths),
+             "launches": launches.get(path, 0), "ms": ms,
+             "device_ms": device.get(path, 0.0) or "not measured",
+             "plain_ms": plain_ms, "plain_vjp_ms": vjp_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+             "max_err_of_largest": rel})
+        if row is None:
+            src, replaces, _ = KERNELS["selective_scan_bwd"]
+            row = {"name": "selective_scan_bwd", "route": "cuda",
+                   "source": src, "replaces": replaces,
+                   "launches": sum(launches.values()), "max_abs_err": err,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None}
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    log({"phase": "kernel", "name": "selective_scan_bwd",
+         "wall_s": time.perf_counter() - t_phase})
+    return row
 
 
 def check_consistency(dev):
@@ -1182,17 +1373,19 @@ def train_child(dev) -> int:
     at RESTART_AT; then restores that checkpoint and runs the last steps
     again, which must give the same parameters and optimizer state bit
     for bit.  This fresh process also times the scan kernel at phase
-    15b's training shape and at phase 5e's Jamba prefill shape with the
-    profiler, which in the smoke's own process misses some of its
-    launches (readings under the bound).  Prints JSON lines, the last
-    one its result."""
+    15b's training shape and at phase 5e's Jamba prefill shape, and the
+    backward kernel at phase 15b's training shape and at phase 16's
+    Jamba shape, with the profiler, which in the smoke's own process
+    misses some of their launches (readings under the bound).  Prints
+    JSON lines, the last one its result."""
     torch.use_deterministic_algorithms(True)
-    scan_device_ms = {}
+    scan_device_ms, bwd_device_ms = {}, {}
     jamba = get_config(JAMBA_ARCH)
+    train_shape = (MAMBA_TRAIN_BT, MAMBA_TRAIN_L,
+                   get_config(MAMBA_ARCH).d_inner,
+                   get_config(MAMBA_ARCH).ssm_state)
     for path, shape in (
-            ("train", (MAMBA_TRAIN_BT, MAMBA_TRAIN_L,
-                       get_config(MAMBA_ARCH).d_inner,
-                       get_config(MAMBA_ARCH).ssm_state)),
+            ("train", train_shape),
             ("jamba_serve", (1, max(JAMBA_PROMPTS), jamba.d_inner,
                              jamba.ssm_state))):
         scan_args = scan_case(np.random.default_rng(6), dev, *shape,
@@ -1200,6 +1393,13 @@ def train_child(dev) -> int:
         scan_device_ms[path] = device_ms(
             lambda: k_scan.selective_scan(*scan_args), 20)[0]
         del scan_args
+    for path, shape, dtype in (("train", train_shape, torch.bfloat16),
+                               ("jamba_train", JAMBA_TRAIN_SCAN,
+                                torch.float32)):
+        args = bwd_case(np.random.default_rng(6), dev, *shape, dtype)
+        bwd_device_ms[path] = device_ms(
+            lambda: k_scan.selective_scan_bwd(*args), 20)[0]
+        del args
     cfg = get_config(DENSE_ARCH).replace(dtype="float32")
     model = build_model(cfg, dev)
     params = model.init_params(seed=0)
@@ -1251,7 +1451,8 @@ def train_child(dev) -> int:
         "losses_last5": losses[-5:], "save_snapshot_s": save_s,
         "restore_s": restore_s, "restart_at": RESTART_AT,
         "restart_bitwise_equal": same, "restart_opt_bitwise_equal":
-        same_opt, "scan_device_ms": scan_device_ms}),
+        same_opt, "scan_device_ms": scan_device_ms,
+        "scan_bwd_device_ms": bwd_device_ms}),
         flush=True)
     return 0
 
@@ -1275,16 +1476,16 @@ def train_dense_child():
     if not (res["restart_bitwise_equal"] and res["restart_opt_bitwise_equal"]):
         raise AssertionError("train_dense: the restarted run differs from "
                              "the uninterrupted one")
-    return res["scan_device_ms"]
+    return res["scan_device_ms"], res["scan_bwd_device_ms"]
 
 
-class VjpTimer:
-    """Times the scan's backward (the plain version's VJP, recomputed)
-    between two synchronises, by wrapping ``_ScanWithPlainGrad.backward``
+class BwdTimer:
+    """Times the scan's backward (the backward kernel and its wrapper)
+    between two synchronises, by wrapping ``_ScanWithKernelGrad.backward``
     for as long as it is open."""
 
     def __init__(self) -> None:
-        self.cls = k_scan._ScanWithPlainGrad
+        self.cls = k_scan._ScanWithKernelGrad
         self.orig = self.cls.backward
         self.secs, self.calls = 0.0, 0
         timer = self
@@ -1303,18 +1504,20 @@ class VjpTimer:
         self.cls.backward = staticmethod(self.orig)
 
 
-def train_mamba(dev, scan_ms):
+def train_mamba(dev, scan_ms, bwd_ms):
     """Phase 15b: falcon-mamba-7b at full width cut to MAMBA_TRAIN_LAYERS
     layers (64 would need ~84 GB: bf16 weights and grads plus float32
     AdamW state), bf16, Bt MAMBA_TRAIN_BT x L MAMBA_TRAIN_L: steps with
     ``remat="full"`` (one micro-batch) and ``"none"`` (two), each with
-    exactly layers x (2 or 1) x micro-batches ``selective_scan`` CUDA
-    launches; step time, tokens/s and peak memory.  Then one more
-    ``"full"`` step with the plain VJP timed between synchronises: its
-    share of a step, and the scan kernel's from ``scan_ms``, its device
+    exactly layers x (2 or 1) x micro-batches ``selective_scan`` and
+    layers x micro-batches ``selective_scan_bwd`` CUDA launches; step
+    time, tokens/s and peak memory.  Then one more ``"full"`` step with
+    the scan's backward timed between synchronises: its share of a step,
+    and the two kernels' from ``scan_ms`` and ``bwd_ms``, their device
     time per launch at this shape (the profiler, in phase 15a's fresh
-    process).  Returns the CUDA launches of the counted steps
-    and the scan's largest training inputs."""
+    process).  Returns the CUDA launches of the counted steps and the
+    scan's largest training inputs."""
+    t_phase = time.perf_counter()
     cfg = get_config(MAMBA_ARCH).replace(n_layers=MAMBA_TRAIN_LAYERS)
     model = build_model(cfg, dev)
     params = model.init_params(seed=0)
@@ -1339,7 +1542,8 @@ def train_mamba(dev, scan_ms):
             secs.append(time.perf_counter() - t0)
             got = counters.device_launch_stats()
             want = {"selective_scan": cfg.n_layers * mb
-                    * (2 if remat == "full" else 1)}
+                    * (2 if remat == "full" else 1),
+                    "selective_scan_bwd": cfg.n_layers * mb}
             if got != want or not np.isfinite(loss):
                 raise AssertionError(f"train_mamba ({remat}, {mb} "
                                      f"micro-batches): CUDA launches {got}, "
@@ -1347,7 +1551,7 @@ def train_mamba(dev, scan_ms):
             for k, v in got.items():
                 total[k] = total.get(k, 0) + v
             i += 1
-        per_step[remat] = want["selective_scan"]
+        per_step[remat] = want
         step_s = statistics.median(secs)
         log({"phase": "train_mamba", "arch": cfg.name, "dtype": cfg.dtype,
              "n_layers": cfg.n_layers, "cut": f"n_layers {cfg.n_layers} of "
@@ -1356,32 +1560,35 @@ def train_mamba(dev, scan_ms):
              "microbatches": mb, "steps": len(secs), "step_s": step_s,
              "steps_s": secs,
              "tokens_per_s": MAMBA_TRAIN_BT * MAMBA_TRAIN_L / step_s,
-             "selective_scan_launches_per_step": want["selective_scan"],
-             "loss": loss})
+             "launches_per_step": want, "loss": loss})
     tap.close()
     log({"phase": "train_mamba", "peak_memory_gb":
          torch.cuda.max_memory_allocated() / 1e9,
          "selective_scan_cuda_launches": total})
 
     largest = tuple(a.detach() for a in tap.largest)
-    vjp = VjpTimer()
+    bwd = BwdTimer()
     try:
         t0 = time.perf_counter()
         params, opt, met = steps["full"](params, opt, batch(i))
         torch.cuda.synchronize()
         timed_wall = time.perf_counter() - t0
     finally:
-        vjp.close()
+        bwd.close()
+    full = per_step["full"]
     log({"phase": "train_mamba_profile", "remat": "full",
-         "vjp_timed_step_s": timed_wall, "plain_vjp_calls": vjp.calls,
-         "plain_vjp_s": vjp.secs, "plain_vjp_share": vjp.secs / timed_wall,
+         "bwd_timed_step_s": timed_wall, "bwd_calls": bwd.calls,
+         "bwd_s": bwd.secs, "bwd_share": bwd.secs / timed_wall,
          "scan_kernel_device_ms": scan_ms,
-         "scan_kernel_share": per_step["full"] * scan_ms * 1e-3
-         / timed_wall})
-    if vjp.calls != cfg.n_layers:
-        raise AssertionError(f"train_mamba: {vjp.calls} plain VJPs in a "
-                             f"step, expected {cfg.n_layers}")
-    return total.get("selective_scan", 0), largest
+         "scan_kernel_share": full["selective_scan"] * scan_ms * 1e-3
+         / timed_wall,
+         "bwd_kernel_device_ms": bwd_ms,
+         "bwd_kernel_share": full["selective_scan_bwd"] * bwd_ms * 1e-3
+         / timed_wall, "wall_s": time.perf_counter() - t_phase})
+    if bwd.calls != cfg.n_layers:
+        raise AssertionError(f"train_mamba: {bwd.calls} scan backward "
+                             f"calls in a step, expected {cfg.n_layers}")
+    return total, largest
 
 
 def train_consistency(dev):
@@ -1393,9 +1600,13 @@ def train_consistency(dev):
     grads within 1e-3 of each leaf's max |g|, parameters after the step
     within 1e-4 (the reference's own bound, ``test_training.py``).  For
     the MoE layers, how many tokens' top-k sets agree between the two
-    sides is logged, with the calls and tokens where they differ."""
+    sides is logged, with the calls and tokens where they differ.  The
+    card's step launches exactly Mamba layers x micro-batches x 2
+    ``selective_scan`` (``remat="full"``) and Mamba layers x
+    micro-batches ``selective_scan_bwd``, and nothing else.  Returns those
+    launches by arch and the largest scan inputs of Jamba's card step."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    tcfg = TrainStepConfig(microbatches=2)
+    tcfg = TrainStepConfig(microbatches=CONSIST_MB)
     ocfg = AdamWConfig(lr=1e-3)
     cases = [(get_config(arch).replace(n_layers=2, dtype="float32"),
               "n_layers 2, float32") for arch in (MAMBA_ARCH, DENSE_ARCH)]
@@ -1403,9 +1614,15 @@ def train_consistency(dev):
                f"the smoke config ({get_config(arch, smoke=True).n_layers} "
                f"layers), float32")
               for arch in (MOE_ARCH, JAMBA_ARCH, VLM_ARCH, AUDIO_ARCH)]
-    shape = ShapeSpec("t", 64, 2, "train")
+    shape = ShapeSpec("t", CONSIST_SEQ, CONSIST_BATCH, "train")
+    launches, jamba_inputs = {}, None
     for cfg, cut in cases:
         sides = []
+        n_mamba = sum(cfg.layer_kind(i) == "mamba"
+                      for i in range(cfg.n_layers))
+        want = {"selective_scan": n_mamba * CONSIST_MB * 2,
+                "selective_scan_bwd": n_mamba * CONSIST_MB} if n_mamba \
+            else {}
         for side in ("cpu", dev):
             model = build_model(cfg, side)
             if side == "cpu":
@@ -1414,11 +1631,22 @@ def train_consistency(dev):
             else:
                 params = start.to(dev)
             batch = make_batch_for(cfg, shape, 0, task="copy", device=side)
-            routes = RouteTap()
+            routes, scans = RouteTap(), ScanTap()
+            counters.reset_device_launches()
             try:
                 grads, loss = make_grad_fn(model, tcfg)(params, batch)
             finally:
                 routes.close()
+                scans.close()
+            if side != "cpu":
+                got = counters.device_launch_stats()
+                if got != want:
+                    raise AssertionError(f"train_consistency ({cfg.name}): "
+                                         f"CUDA launches {got}, expected "
+                                         f"{want}")
+                launches[cfg.name] = got
+                if cfg.family == "hybrid":                  # Jamba
+                    jamba_inputs = tuple(a.detach() for a in scans.largest)
             params, _, _ = adamw_update(grads, adamw_init(params, ocfg),
                                         params, ocfg)
             sides.append((float(loss), {k: g.cpu() for k, g in
@@ -1451,11 +1679,13 @@ def train_consistency(dev):
              "max_grad_err_of_leaf_max": max(grad_rel.values()),
              "worst_grad_leaf": max(grad_rel, key=grad_rel.get),
              "max_param_abs_err": max(param_err.values()),
-             "leaves": len(grads), "leaves_off_bound": bad})
+             "leaves": len(grads), "leaves_off_bound": bad,
+             "cuda_launches": want})
         if abs(loss - dloss) > 1e-4 or bad:
             raise AssertionError(f"train_consistency ({cfg.name}): loss "
                                  f"{loss} vs {dloss}; leaves off their "
                                  f"bound: {bad}")
+    return launches, jamba_inputs
 
 
 # ----------------------------------------------------------------------
@@ -1546,7 +1776,9 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new, max_seq=None,
     by the launcher's ``request_inputs``.  Each request's tokens must
     equal greedy generation of its inputs alone at the loop's batch
     (``generate_in_slots``: bf16 products at 1 and 4 rows round apart);
-    the first difference from ``greedy_generate`` at batch 1 is logged.  With MoE layers, decode rows are independent
+    for one request of each prompt length, the first difference from
+    ``greedy_generate`` at batch 1 is logged.  With MoE layers, decode
+    rows are independent
     only while an expert's capacity holds a whole step (one group of
     SERVE_SLOTS tokens), so the check also counts the slots dropped by
     capacity: logged per prefill, and none allowed in a decode step.
@@ -1660,10 +1892,11 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new, max_seq=None,
 
     # each request alone at the loop's shapes, counting the slots its
     # prefill and decode steps drop; then, logged, greedy_generate at
-    # batch 1
+    # batch 1 for the first request of each prompt length
     routes = RouteTap()
     n_moe = sum(f == "moe" for _, f in kinds)
     differ, batch1_first, drops, by_layer = [], {}, {}, {}
+    batch1_lengths = set()
     try:
         for r in done:
             prompt = torch.tensor(r.prompt, dtype=torch.int32, device=dev)
@@ -1677,6 +1910,9 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new, max_seq=None,
             if len(calls) != n_moe * n_new or late:
                 raise AssertionError(f"{label}: {len(calls)} routings, "
                                      f"{late} slots dropped in decode steps")
+            if len(r.prompt) in batch1_lengths:
+                continue
+            batch1_lengths.add(len(r.prompt))
             alone = greedy_generate(model, params, {
                 "tokens": prompt[None], **inputs[r.id]}, n_new,
                 max_seq=max_seq)
@@ -1694,6 +1930,7 @@ def serve_routed(dev, label, arch, cuts, prompts, n_new, max_seq=None,
              "dropped_slots_by_moe_layer": {
                  done[-1].id: by_layer[done[-1].id]},
              "dropped_slots_in_decode_steps": 0} if n_moe else {}),
+         "batch1_compared": len(batch1_first),
          "batch1_equal": sum(v is None for v in batch1_first.values()),
          "batch1_first_difference": {k: v for k, v in batch1_first.items()
                                      if v is not None}})
@@ -2139,10 +2376,12 @@ def plain_job(states, use_kernel):
 
 
 def fleet_ricc(twins, dev):
-    """Phase 9: the 8 policies on the RICC-sized system, the 6 blocking
-    rows to the end against numpy twins, the EBF rows against twins cut
-    at RICC_MAX_EVENTS events (``twins``: tag -> pending TwinRun); then
-    each of its two launches timed alone."""
+    """Phase 9: the 8 policies on the RICC-sized system, each of its two
+    launches timed alone; returns a function that then holds the 6
+    blocking rows to the end against numpy twins and the EBF rows against
+    twins cut at RICC_MAX_EVENTS events (``twins``: tag -> pending
+    TwinRun), logs the phase and returns its CUDA launches, so that the
+    card can go on while the twins run."""
     base = FleetRunner.build("ricc", ricc_jobs(Job, RICC_JOBS), RICC,
                              SCHED_FIFO)
     sims = policy_sims(base)
@@ -2151,33 +2390,38 @@ def fleet_ricc(twins, dev):
     launches = counters.device_launch_stats()
     for i in range(len(sims)):
         check_invariants(res, i)
-    rows = []
-    for i, (sc, ac) in enumerate(POLICIES):
-        tag = tag_of(sc, ac)
-        label, f = f"ricc {tag}", res.finals[i]
-        got = TWINS.get(("ricc", tag)) if sc == SCHED_EBF else None
-        if got:                                  # phase 3's twin
-            rec, summ, tw = got
-        else:
-            twin = twins[tag].get()
-            rec, summ, tw = twin, twin.summary, twin.wall
-        row = {"row": tag, "events": int(f.n_events), "twin_wall_s": tw,
-               "twin_events": summ["events"],
-               "twin_events_per_s": summ["events"] / tw}
-        if sc == SCHED_EBF:
-            row["checked_dispatch_events"] = check_prefix(res, i, rec, label)
-        else:
-            check_against_twin(res, i, rec, summ, label)
-        rows.append(row)
-    events = sum(int(f.n_events) for f in res.finals)
     time_launches(res, sims, "ricc", dev)
-    log({"phase": "fleet_ricc", "sims": len(sims), "jobs": RICC_JOBS,
-         "nodes": RICC["nodes"]["ricc"], "events": events, "wall_s": wall,
-         "events_per_s": events / wall, "launches": res.launches,
-         "kernel_device_s": ours, "device_busy_share": total / wall,
-         "rows": rows, "equal_to_twins": True, "invariants": True,
-         "cuda_launches": launches})
-    return launches
+
+    def against_twins():
+        rows = []
+        for i, (sc, ac) in enumerate(POLICIES):
+            tag = tag_of(sc, ac)
+            label, f = f"ricc {tag}", res.finals[i]
+            got = TWINS.get(("ricc", tag)) if sc == SCHED_EBF else None
+            if got:                              # phase 3's twin
+                rec, summ, tw = got
+            else:
+                twin = twins[tag].get()
+                rec, summ, tw = twin, twin.summary, twin.wall
+            row = {"row": tag, "events": int(f.n_events), "twin_wall_s": tw,
+                   "twin_events": summ["events"],
+                   "twin_events_per_s": summ["events"] / tw}
+            if sc == SCHED_EBF:
+                row["checked_dispatch_events"] = check_prefix(res, i, rec,
+                                                              label)
+            else:
+                check_against_twin(res, i, rec, summ, label)
+            rows.append(row)
+        events = sum(int(f.n_events) for f in res.finals)
+        log({"phase": "fleet_ricc", "sims": len(sims), "jobs": RICC_JOBS,
+             "nodes": RICC["nodes"]["ricc"], "events": events,
+             "wall_s": wall, "events_per_s": events / wall,
+             "launches": res.launches, "kernel_device_s": ours,
+             "device_busy_share": total / wall, "rows": rows,
+             "equal_to_twins": True, "invariants": True,
+             "cuda_launches": launches})
+        return launches
+    return against_twins
 
 
 def fleet_failures(twins):
@@ -2248,6 +2492,12 @@ def fleet_intrepid(dev, twins):
     if not launches.get("fleet_engine"):
         raise AssertionError("fleet intrepid: no CUDA launch of "
                              "fleet_engine")
+    # the card's work first, while the twins may still be running
+    ms = time_launches(res, sims, "intrepid", dev)
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        device = pool.apply(launch_device_ms, ({
+            cls: states for cls, (_, states) in
+            launch_states(res, sims).items()},))
     rows = []
     for i, (sc, ac) in enumerate(POLICIES):
         tag = tag_of(sc, ac)
@@ -2260,11 +2510,6 @@ def fleet_intrepid(dev, twins):
                      "twin_wall_s": twin.wall,
                      "twin_events_per_s": twin.summary["events"] / twin.wall})
     events = sum(int(f.n_events) for f in res.finals)
-    ms = time_launches(res, sims, "intrepid", dev)
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        device = pool.apply(launch_device_ms, ({
-            cls: states for cls, (_, states) in
-            launch_states(res, sims).items()},))
     nbytes = batch_bytes(res.finals)
     b_ms, b_by = bound("fleet_engine", (nbytes,))
     log({"phase": "fleet_intrepid", "sims": len(sims),
@@ -2384,36 +2629,45 @@ def fleet_kernel_vs_plain(dev, cases, plains):
     return ms, plain_ms, b_ms, b_by
 
 
-def fleet(dev):
+def fleet_twins(pool, cases):
+    """Queues phases 8-11's host work on ``pool`` (numpy twins and the
+    plain runs of ``cases``), the longest first: the Intrepid-sized EBF
+    rows, then RICC's blocking rows.  Returns the pending results, for
+    ``fleet``."""
+    intrepid = {tag_of(sc, ac): pool.apply_async(twin_job, (
+        INTREPID, tag_of(sc, ac))) for sc, ac in POLICIES
+        if sc == SCHED_EBF}
+    ricc = {tag_of(sc, ac): pool.apply_async(twin_job, (
+        RICC, tag_of(sc, ac))) for sc, ac in reversed(POLICIES)
+        if sc != SCHED_EBF}
+    ricc["EBF-FF"] = pool.apply_async(
+        twin_job, (RICC, "EBF-FF", RICC_MAX_EVENTS))
+    intrepid.update({tag_of(sc, ac): pool.apply_async(twin_job, (
+        INTREPID, tag_of(sc, ac))) for sc, ac in POLICIES
+        if sc != SCHED_EBF})
+    failing = {tag: pool.apply_async(twin_job, (SETH, tag, None, True))
+               for tag in ("FIFO-FF", "EBF-BF")}
+    plains = [pool.apply_async(plain_job, (states, use_kernel))
+              for _, states, use_kernel in cases]
+    return intrepid, ricc, failing, plains
+
+
+def fleet(dev, cases, pending):
     """Phases 8-11; returns the kernel table's fleet_engine row.  The
-    numpy twins of phases 9-10 and the plain runs of phase 11 go to
-    worker processes first (host work only), and run while the card
-    runs the fleet."""
-    cases = plain_cases()
-    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    numpy twins of phases 9-11b and the plain runs of phase 11
+    (``pending``, from ``fleet_twins``) run in worker processes while
+    the card runs the fleet: phase 8, phase 9's runs, phase 11b, by
+    whose end phase 9's twins are done, then phase 9's checks, 10 and
+    11."""
+    intrepid_twins, ricc_twins, fail_twins, plains = pending
     t0 = time.perf_counter()
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        ricc_twins = {tag_of(sc, ac): pool.apply_async(twin_job, (
-            RICC, tag_of(sc, ac))) for sc, ac in POLICIES
-            if sc != SCHED_EBF}
-        ricc_twins["EBF-FF"] = pool.apply_async(
-            twin_job, (RICC, "EBF-FF", RICC_MAX_EVENTS))
-        fail_twins = {tag: pool.apply_async(twin_job, (SETH, tag, None,
-                                                       True))
-                      for tag in ("FIFO-FF", "EBF-BF")}
-        plains = [pool.apply_async(plain_job, (states, use_kernel))
-                  for _, states, use_kernel in cases]
-        intrepid_twins = {tag_of(sc, ac): pool.apply_async(twin_job, (
-            INTREPID, tag_of(sc, ac))) for sc, ac in POLICIES}
-        seth_launches, grid = fleet_seth_grid(dev)
-        ricc_launches = fleet_ricc(ricc_twins, dev)
-        fail_launches = fleet_failures(fail_twins)
-        ms, plain_ms, b_ms, b_by = fleet_kernel_vs_plain(dev, cases, plains)
-        intrepid_launches = fleet_intrepid(dev, intrepid_twins)
-        pool.close()
-        pool.join()
-    log({"phase": "fleet", "workers": workers,
-         "total_s": time.perf_counter() - t0})
+    seth_launches, grid = fleet_seth_grid(dev)
+    ricc_against_twins = fleet_ricc(ricc_twins, dev)
+    intrepid_launches = fleet_intrepid(dev, intrepid_twins)
+    ricc_launches = ricc_against_twins()
+    fail_launches = fleet_failures(fail_twins)
+    ms, plain_ms, b_ms, b_by = fleet_kernel_vs_plain(dev, cases, plains)
+    log({"phase": "fleet", "total_s": time.perf_counter() - t0})
     launches = sum(d.get("fleet_engine", 0) for d in (
         seth_launches, ricc_launches, fail_launches, intrepid_launches))
     for name, got in (("seth", seth_launches), ("ricc", ricc_launches),
@@ -2439,7 +2693,7 @@ def fleet(dev):
 # ----------------------------------------------------------------------
 def study_workload():
     """The policy study's workload: SyntheticWorkload on the Seth system,
-    its repeats reseeded base..base+15 by the Experiment."""
+    its repeats reseeded from the base seed on by the Experiment."""
     return SyntheticWorkload(STUDY_JOBS, seed=STUDY_SEED, **STUDY_WL)
 
 
@@ -2455,9 +2709,9 @@ def host_twin(root, name, workload, tag):
     return res["summaries"][0], res["output"], time.perf_counter() - t0
 
 
-def table2_twin(root, tag):
-    return host_twin(root, "table2", list(seth_jobs(TABLE2_JOBS,
-                                                    TABLE2_SEED)), tag)
+def table2_twin(root, tag, n_jobs=TABLE2_JOBS):
+    return host_twin(root, "table2", list(seth_jobs(n_jobs, TABLE2_SEED)),
+                     tag)
 
 
 def study_twin(root, tag):
@@ -2523,13 +2777,15 @@ class FleetSplit:
             FleetRunner.run, FleetResult.write_outputs = run, write
 
 
-def experiment_table2(dev, td, twins, produce_plots):
+def experiment_table2(dev, td, twins, vx_twins, produce_plots):
     """Phase 12: ``benchmarks_torch/table2_dispatchers.run`` on the card
     (8,000 Seth jobs, the 8 policies on the fleet: 2 launches), each row
     against the same dispatcher through ``Experiment(use_fleet=False)``
     (``twins``: tag -> pending host twin); then the reference example's
-    three vectorized rows through an ``Experiment`` on the card, each
-    against its numpy twin.  Returns the CUDA launches of both runs."""
+    three vectorized rows through an ``Experiment`` on the card, on the
+    stream's first TABLE2_VX_JOBS jobs, each against its numpy twin on
+    those jobs (``vx_twins``).  Returns the CUDA launches of both
+    runs."""
     split = FleetSplit()
     counters.reset_device_launches()
     t0 = time.perf_counter()
@@ -2566,7 +2822,7 @@ def experiment_table2(dev, td, twins, produce_plots):
          "cuda_launches": launches})
 
     # the reference example's vectorized rows, on the card
-    exp = Experiment("table2_vectorized", list(seth_jobs(TABLE2_JOBS,
+    exp = Experiment("table2_vectorized", list(seth_jobs(TABLE2_VX_JOBS,
                                                          TABLE2_SEED)),
                      SETH, output_dir=td, device=dev)
     alloc = lambda pol: VectorizedAllocator(pol, device=dev)
@@ -2586,15 +2842,16 @@ def experiment_table2(dev, td, twins, produce_plots):
     vx_rows = {}
     for tag, twin in (("FIFO-vFF", "FIFO-FF"), ("FIFO-vBF", "FIFO-BF"),
                       ("vEBF-vFF", "EBF-FF")):
+        host_vx = vx_twins[twin].get()
         (summ,) = res[tag]["summaries"]
         if (summ["engine"], summ["fallback_reason"]) != (
                 "host", "non-compilable-dispatcher"):
             raise AssertionError(f"table2 {tag}: {summ['engine']}, "
                                  f"{summ['fallback_reason']}")
-        check_against_host(summ, res[tag]["output"], host[twin],
+        check_against_host(summ, res[tag]["output"], host_vx,
                            f"table2 {tag}")
         with open(res[tag]["output"], "rb") as a, \
-                open(host[twin][1], "rb") as b:
+                open(host_vx[1], "rb") as b:
             if a.read() != b.read():
                 raise AssertionError(f"table2 {tag}: output not byte-equal "
                                      f"to {twin}'s")
@@ -2602,8 +2859,9 @@ def experiment_table2(dev, td, twins, produce_plots):
                         "events_per_s": summ["events"] / summ["wall_time_s"],
                         "launches_per_event":
                             summ["kernel_launches_per_event"],
-                        "twin_events_per_s": summ["events"] / host[twin][2]}
+                        "twin_events_per_s": summ["events"] / host_vx[2]}
     log({"phase": "experiment_table2", "vectorized_rows": vx_rows,
+         "jobs": TABLE2_VX_JOBS,
          "wall_s": wall, "equal_to_numpy_twins": True,
          "cuda_launches": vx_launches})
     return {k: launches.get(k, 0) + vx_launches.get(k, 0)
@@ -2611,9 +2869,10 @@ def experiment_table2(dev, td, twins, produce_plots):
 
 
 def experiment_study(dev, td, twins):
-    """Phase 13: ``Experiment`` over the 8 policies x 8 repeats of a
-    10,000-job SyntheticWorkload on Seth, one ``run_simulation`` on the
-    card (64 sims, 2 ``fleet_engine`` launches), under the profiler for
+    """Phase 13: ``Experiment`` over the 8 policies x STUDY_REPEATS
+    repeats of a STUDY_JOBS-job SyntheticWorkload on Seth, one
+    ``run_simulation`` on the card (2 ``fleet_engine`` launches), under
+    the profiler for
     its device busy share; every row's invariants, its engine and seed,
     and FIFO-FF r0 and EBF-BF r0 against host twins (``twins``)."""
     exp = Experiment("study", study_workload(), SETH, output_dir=td,
@@ -2673,27 +2932,34 @@ def experiment_study(dev, td, twins):
     return launches
 
 
-def experiment(dev):
-    """Phases 12-13; returns their CUDA launches.  The host twins go to
-    worker processes first and run while the card runs the study."""
+def experiment_twins(pool, td):
+    """Queues phases 12-13's host twins on ``pool``, their outputs under
+    ``td``: the Table-2 rows, the vectorized rows' twins on the first
+    TABLE2_VX_JOBS jobs, and two rows of the policy study.  Returns the
+    pending results, for ``experiment``."""
+    t2 = {tag: pool.apply_async(table2_twin, (os.path.join(td, "host"),
+                                              tag))
+          for tag in (tag_of(sc, ac) for sc, ac in POLICIES)}
+    st = {tag: pool.apply_async(study_twin, (os.path.join(td, "host"),
+                                             tag))
+          for tag in ("FIFO-FF", "EBF-BF")}
+    vx = {tag: pool.apply_async(table2_twin, (
+        os.path.join(td, "host_vx"), tag, TABLE2_VX_JOBS))
+        for tag in ("FIFO-FF", "FIFO-BF", "EBF-FF")}
+    return t2, st, vx
+
+
+def experiment(dev, td, pending):
+    """Phases 12-13, their outputs under ``td``; returns their CUDA
+    launches.  The host twins (``pending``, from ``experiment_twins``)
+    were queued before the fleet phases and run in worker processes."""
     produce_plots = importlib.util.find_spec("matplotlib") is not None
-    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    t2, st, vx = pending
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as td, \
-            multiprocessing.get_context("spawn").Pool(workers) as pool:
-        t2 = {tag: pool.apply_async(table2_twin, (os.path.join(td, "host"),
-                                                  tag))
-              for tag in (tag_of(sc, ac) for sc, ac in POLICIES)}
-        st = {tag: pool.apply_async(study_twin, (os.path.join(td, "host"),
-                                                 tag))
-              for tag in ("FIFO-FF", "EBF-BF")}
-        table2_launches = experiment_table2(dev, os.path.join(td, "card"),
-                                            t2, produce_plots)
-        study_launches = experiment_study(dev, os.path.join(td, "card"), st)
-        pool.close()
-        pool.join()
-    log({"phase": "experiment", "workers": workers,
-         "total_s": time.perf_counter() - t0})
+    table2_launches = experiment_table2(dev, os.path.join(td, "card"),
+                                        t2, vx, produce_plots)
+    study_launches = experiment_study(dev, os.path.join(td, "card"), st)
+    log({"phase": "experiment", "total_s": time.perf_counter() - t0})
     return {k: table2_launches.get(k, 0) + study_launches.get(k, 0)
             for k in set(table2_launches) | set(study_launches)}
 
@@ -2941,6 +3207,16 @@ def main() -> int:
     return run(torch.device("cuda"))
 
 
+def log_build(built) -> None:
+    """One line per source ``build.build_all`` compiled: its ``nvcc``
+    seconds, and ptxas's registers and spills."""
+    for name, (secs, text) in built.items():
+        ptxas = [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log({"phase": "build", "source": name, "nvcc_s": secs,
+             "ptxas": ptxas})
+
+
 def run(dev) -> int:
     """All phases on ``dev``; raises on any failure."""
     t_start = time.perf_counter()
@@ -2955,13 +3231,14 @@ def run(dev) -> int:
          "nvidia_smi": smi, "count": torch.cuda.device_count(),
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "python": sys.version.split()[0]})
+    # the dispatch and scan kernels now; the fleet engine's two libraries
+    # (about a minute of nvcc) build in a thread while phases 2-7 run,
+    # and are waited for before phase 8, their first user
     t0 = time.perf_counter()
-    built = build.build_all()
-    for name, (secs, text) in built.items():
-        ptxas = [ln.strip() for ln in text.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log({"phase": "build", "source": name, "nvcc_s": secs,
-             "ptxas": ptxas})
+    fleet_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build_all, FLEET_SOURCES)
+    log_build(build.build_all([name for name in build.SIGNATURES
+                               if name not in FLEET_SOURCES]))
     log({"phase": "build", "total_s": time.perf_counter() - t0})
     for dtype in k_scan.DTYPE_CODES:
         for aligned in (True, False):
@@ -3132,8 +3409,8 @@ def run(dev) -> int:
     serve_vlm_and_audio(dev)
 
     # ---- 15.-16. training (before the fleet phases, after which the
-    # profiler records none of this process's kernels), and 6b ---------
-    scan_child_ms = train_dense_child()
+    # profiler records none of this process's kernels), 6b and 6c ----
+    scan_child_ms, bwd_child_ms = train_dense_child()
     kernel_rows("selective_scan", k_scan.selective_scan,
                 ref.selective_scan_ref, {"jamba_serve": jamba_inputs}, [],
                 {"jamba_serve": jamba_launches},
@@ -3144,24 +3421,49 @@ def run(dev) -> int:
     table[-1]["launches"] += jamba_launches
     del jamba_inputs
     scan_train_ms = scan_child_ms["train"]
-    train_launches, train_inputs = train_mamba(dev, scan_train_ms)
+    train_launches, train_inputs = train_mamba(dev, scan_train_ms,
+                                               bwd_child_ms["train"])
     kernel_rows("selective_scan", k_scan.selective_scan,
                 ref.selective_scan_ref, {"train": train_inputs}, [],
-                {"train": train_launches},
+                {"train": train_launches["selective_scan"]},
                 lambda a: tuple(a[0].shape) + (a[2].shape[1],
                                                a[0].element_size()),
                 tol=1e-4, reps=20, plain_reps=2, plain_rounds=3,
                 plain_device_reps=2, device=scan_train_ms)
-    table[-1]["launches"] += train_launches
-    train_consistency(dev)
+    consist, jamba_train_inputs = train_consistency(dev)
+    table[-1]["launches"] += train_launches["selective_scan"] + sum(
+        c.get("selective_scan", 0) for c in consist.values())
+    # ---- 6c. the backward kernel against its plain version -----------
+    bwd_launches = {"train": train_launches["selective_scan_bwd"]}
+    for name, c in consist.items():
+        if c:
+            key = "jamba_train" if "jamba" in name else f"{name}_train"
+            bwd_launches[key] = c["selective_scan_bwd"]
+    table.append(check_scan_bwd(
+        dev, {"train": train_inputs, "jamba_train": jamba_train_inputs},
+        bwd_launches, bwd_child_ms))
+    del train_inputs, jamba_train_inputs
     train_moe(dev)
     train_audio(dev)
 
-    # ---- 8.-11. the fleet engine -------------------------------------
-    table.append(fleet(dev))
-
-    # ---- 12.-13. the Experiment layer ---------------------------------
-    exp_launches = experiment(dev)
+    # ---- 8.-11. the fleet engine, 12.-13. the Experiment layer: the
+    # host twins of both go to one pool of worker processes first, the
+    # fleet's queued before the Experiment's, and run meanwhile --------
+    t0 = time.perf_counter()
+    log_build(fleet_build.result())
+    log({"phase": "build", "sources": FLEET_SOURCES,
+         "waited_s": time.perf_counter() - t0})
+    cases = plain_cases()
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    log({"phase": "fleet", "workers": workers})
+    with tempfile.TemporaryDirectory() as td, \
+            multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pending = fleet_twins(pool, cases)
+        exp_pending = experiment_twins(pool, td)
+        table.append(fleet(dev, cases, pending))
+        exp_launches = experiment(dev, td, exp_pending)
+        pool.close()
+        pool.join()
     for row in table:
         row["launches"] += exp_launches.get(row["name"], 0)
 

@@ -11,7 +11,8 @@ in ``.gitignore``), named by a hash of source and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is.  The flags
 keep IEEE division and accurate ``expf`` (no ``--use_fast_math``):
 Best-Fit scores must be bitwise equal to the host's float32 arithmetic,
-and the selective scan within 1e-4 of its plain version.
+and the selective scan and its backward within 1e-4 of their plain
+versions.
 """
 from __future__ import annotations
 
@@ -54,6 +55,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         # dtype code, aligned, device, int out[5]
         "selective_scan_attributes": [_I, _I, _I, _P],
     },
+    "selective_scan_bwd": {
+        # u, delta, A, B, C, D, gy, gh, du, ddelta, dA, dB, dC, dD,
+        # scratch, scratch floats, Bt, L, Di, S, dtype code, device, stream
+        "selective_scan_bwd_launch": [_P] * 15 + [ctypes.c_longlong]
+        + [_I] * 6 + [_P],
+        # Bt, L, Di, S -> float32 scratch elements of a launch
+        "selective_scan_bwd_scratch_floats": [_I, _I, _I, _I],
+    },
     "fleet_engine": {
         # field pointers, field strides, n_fields, scratch, B, M, N, R, K,
         # E, F, S, use_kernel, device, stream
@@ -73,7 +82,8 @@ SIGNATURES["fleet_engine_wide"] = SIGNATURES["fleet_engine"]
 #: launchers that return a 64-bit count (the others return a CUDA error
 #: code or an int)
 RESTYPES = {"fleet_engine_shared_bytes": ctypes.c_longlong,
-            "fleet_engine_scratch_ints": ctypes.c_longlong}
+            "fleet_engine_scratch_ints": ctypes.c_longlong,
+            "selective_scan_bwd_scratch_floats": ctypes.c_longlong}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -94,15 +104,16 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, Tuple[float, str]]:
-    """Compile every source that has no up-to-date library, one ``nvcc``
-    per source, all started together.  Returns ``{name: (seconds,
-    compiler log)}`` for the sources it compiled; raises on a failure."""
+def build_all(names=None) -> Dict[str, Tuple[float, str]]:
+    """Compile every source (of ``names``, where given) that has no
+    up-to-date library, one ``nvcc`` per source, all started together.
+    Returns ``{name: (seconds, compiler log)}`` for the sources it
+    compiled; raises on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     t0 = time.perf_counter()
-    for name in SIGNATURES:
+    for name in SIGNATURES if names is None else names:
         out = _target(name)
         if out.exists():
             continue

@@ -159,3 +159,52 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         h = torch.exp(d_t * A) * h + d_t * B[:, t, None, :] * u[:, t, :, None]
         ys.append((h * C[:, t, None, :]).sum(-1) + D * u[:, t])
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           D: torch.Tensor, gy: torch.Tensor,
+                           gh: torch.Tensor):
+    """The selective scan's backward, computed in float32 by the explicit
+    reverse recurrence (not autograd).
+
+    ``gy`` [Bt, L, Di] and ``gh`` [Bt, Di, S] are the cotangents of ``y``
+    and ``h_last``.  Returns (du, ddelta, dA, dB, dC, dD), each in its
+    input's dtype.  With ``a_t = exp(delta_t A)`` and ``G_t`` the
+    gradient of ``h_t``:
+        G_{L-1} = gh + C_{L-1} gy_{L-1},  G_t = a_{t+1} G_{t+1} + C_t gy_t
+        du_t     = D gy_t + delta_t sum_s G_t B_t
+        ddelta_t = sum_s G_t (h_{t-1} a_t A + B_t u_t)
+        dB_t     = sum_d G_t delta_t u_t,   dC_t = sum_d gy_t h_t
+        dA = sum_{b,t} G_t h_{t-1} a_t delta_t,   dD = sum_{b,t} gy_t u_t
+    """
+    inputs = (u, delta, A, B, C, D)
+    u, delta, A, B, C, D, gy, gh = (x.to(torch.float32) for x in
+                                    (*inputs, gy, gh))
+    bt, length, di = u.shape
+    h = torch.zeros((bt, di, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    hs = []                                   # h_{t-1}, then h_{L-1}
+    for t in range(length):
+        hs.append(h)
+        d_t = delta[:, t, :, None]
+        h = torch.exp(d_t * A) * h + d_t * B[:, t, None, :] * u[:, t, :, None]
+    hs.append(h)
+    da = torch.exp(delta[..., None] * A)      # [Bt, L, Di, S]
+    g = gh
+    gs = [None] * length
+    for t in reversed(range(length)):
+        g = g + C[:, t, None, :] * gy[:, t, :, None]
+        gs[t] = g
+        g = da[:, t] * g
+    G = torch.stack(gs, dim=1)                # [Bt, L, Di, S]
+    h_prev = torch.stack(hs[:-1], dim=1)
+    h_cur = torch.stack(hs[1:], dim=1)
+    du = D * gy + delta * (G * B[:, :, None, :]).sum(-1)
+    ddelta = (G * (h_prev * da * A + B[:, :, None, :] * u[..., None])).sum(-1)
+    dB = (G * (delta * u)[..., None]).sum(2)
+    dC = (gy[..., None] * h_cur).sum(2)
+    dA = (G * h_prev * da * delta[..., None]).sum((0, 1))
+    dD = (gy * u).sum((0, 1))
+    return tuple(gr.to(x.dtype) for gr, x in
+                 zip((du, ddelta, dA, dB, dC, dD), inputs))

@@ -1,14 +1,17 @@
-"""Mamba-1 selective scan (CUDA kernel wrapper).
+"""Mamba-1 selective scan (CUDA kernel wrappers, forward and backward).
 
 The recurrence ``h = exp(delta * A) * h + delta * B * u``, ``y = h . C +
 D * u`` over the sequence, for the prefill and training forward of the
-Mamba mixer (``models/mamba.py``).  The kernel (``csrc/selective_scan.cu``)
-splits each channel's states over four lanes, stages the inputs in shared
-memory and reads ``u``, ``delta``, ``B`` and ``C`` in the caller's float
-type; the plain version is ``ref.selective_scan_ref``.  The kernel has no
-backward: on the card, gradients come from the plain version's VJP,
-recomputed on the saved inputs (:class:`_ScanWithPlainGrad`), as the
-reference pairs its Pallas forward with its oracle's VJP.
+Mamba mixer (``models/mamba.py``).  The forward kernel
+(``csrc/selective_scan.cu``) splits each channel's states over four
+lanes, stages the inputs in shared memory and reads ``u``, ``delta``,
+``B`` and ``C`` in the caller's float type; its plain version is
+``ref.selective_scan_ref``.  On the card the gradient is the backward
+kernel's (``csrc/selective_scan_bwd.cu``, :class:`_ScanWithKernelGrad`):
+the reverse recurrence over the saved inputs, the forward's states
+recomputed from checkpoints at chunk starts; its plain version is
+``ref.selective_scan_bwd_ref``.  On the CPU autograd differentiates the
+plain forward.
 """
 from __future__ import annotations
 
@@ -41,7 +44,9 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     chunk of at most ``MAX_BT`` batch rows and ``MAX_S`` states) or raises:
     ``u``, ``delta``, ``B`` and ``C`` are read as they are when they
     share one type, else all four are cast to float32; ``A`` and ``D``
-    are cast to float32.  A CPU tensor runs the plain version.
+    are cast to float32.  Its gradient launches the backward kernel,
+    once per forward launch, or raises.  A CPU tensor runs the plain
+    version.
     """
     dev = u.device
     for t, name, ndim in ((u, "u", 3), (delta, "delta", 3), (A, "A", 2),
@@ -63,9 +68,10 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     if s > MAX_S:
         return split_states(u, delta, A, B, C, D)
     if bt <= MAX_BT:
-        return _ScanWithPlainGrad.apply(u, delta, A, B, C, D)
-    parts = [_ScanWithPlainGrad.apply(u[i:i + MAX_BT], delta[i:i + MAX_BT],
-                                      A, B[i:i + MAX_BT], C[i:i + MAX_BT], D)
+        return _ScanWithKernelGrad.apply(u, delta, A, B, C, D)
+    parts = [_ScanWithKernelGrad.apply(u[i:i + MAX_BT], delta[i:i + MAX_BT],
+                                       A, B[i:i + MAX_BT], C[i:i + MAX_BT],
+                                       D)
              for i in range(0, bt, MAX_BT)]
     return (torch.cat([y for y, _ in parts]),
             torch.cat([h for _, h in parts]))
@@ -90,10 +96,11 @@ def split_states(u, delta, A, B, C, D):
     return y, torch.cat(hs, dim=-1)
 
 
-class _ScanWithPlainGrad(torch.autograd.Function):
-    """The kernel forward and, for the backward, the VJP of the plain
-    version recomputed under autograd on the saved inputs (the
-    reference's ``ops._scan_with_ref_grad``)."""
+class _ScanWithKernelGrad(torch.autograd.Function):
+    """The forward kernel and, for the backward, the backward kernel on
+    the saved inputs (the reference's ``ops._scan_with_ref_grad`` runs
+    its oracle's VJP there).  Gradients the graph does not ask for come
+    back as None."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D):
@@ -102,15 +109,9 @@ class _ScanWithPlainGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_y, grad_h):
-        saved = [x.detach().requires_grad_(need)
-                 for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wrt = [x for x in saved if x.requires_grad]
-        with torch.enable_grad():
-            y, h_last = ref.selective_scan_ref(*saved)
-            grads = iter(torch.autograd.grad((y, h_last), wrt,
-                                             (grad_y, grad_h)))
-        return tuple(next(grads) if x.requires_grad else None
-                     for x in saved)
+        grads = selective_scan_bwd(*ctx.saved_tensors, grad_y, grad_h)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def _launch(u, delta, A, B, C, D):
@@ -133,6 +134,64 @@ def _launch(u, delta, A, B, C, D):
         "selective_scan")
     counters.record_device("selective_scan")
     return y, h_last
+
+
+def selective_scan_bwd(u, delta, A, B, C, D, gy, gh):
+    """(du, ddelta, dA, dB, dC, dD) of the selective scan, each in its
+    input's dtype, from the scan's inputs and the cotangents ``gy``
+    [Bt, L, Di] of ``y`` and ``gh`` [Bt, Di, S] of ``h_last`` (zeros where
+    it is unused).  A CUDA tensor launches the backward kernel (at most
+    ``MAX_BT`` rows and ``MAX_S`` states: ``selective_scan``'s gradient
+    splits larger scans as its forward does) or raises; a CPU tensor
+    runs the plain version."""
+    bt, length, di = u.shape
+    s = A.shape[1]
+    if tuple(gy.shape) != (bt, length, di) or tuple(gh.shape) != (bt, di, s):
+        raise ValueError(f"cotangents gy {tuple(gy.shape)}, gh "
+                         f"{tuple(gh.shape)} of a scan of u "
+                         f"{tuple(u.shape)}, S {s}")
+    if not build.launch_target(u.device):
+        return ref.selective_scan_bwd_ref(u, delta, A, B, C, D, gy, gh)
+    for t, name, ndim in ((u, "u", 3), (delta, "delta", 3), (A, "A", 2),
+                          (B, "B", 3), (C, "C", 3), (D, "D", 1)):
+        build.check_input(t, name, ndim, u.device, _FLOATS)
+    if s > MAX_S or bt > MAX_BT:
+        raise ValueError(f"one backward launch takes Bt <= {MAX_BT} and "
+                         f"S <= {MAX_S}, got Bt {bt}, S {s}")
+    grads = _launch_bwd(u, delta, A, B, C, D, gy, gh)
+    return tuple(g.to(x.dtype) for g, x in
+                 zip(grads, (u, delta, A, B, C, D)))
+
+
+def _launch_bwd(u, delta, A, B, C, D, gy, gh):
+    """Launch the backward kernel on checked CUDA inputs: (du, ddelta,
+    dA, dB, dC, dD), du, ddelta, dB and dC in the kernel's element type,
+    dA and dD in float32."""
+    bt, length, di = u.shape
+    s = A.shape[1]
+    dev = u.device
+    if len({u.dtype, delta.dtype, B.dtype, C.dtype}) > 1:
+        u, delta, B, C = (t.to(torch.float32) for t in (u, delta, B, C))
+    A, D = A.to(torch.float32), D.to(torch.float32)
+    gy = gy.to(torch.float32).contiguous()
+    gh = gh.to(torch.float32).contiguous()
+    du, ddelta = torch.empty_like(u), torch.empty_like(delta)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dA = torch.empty((di, s), dtype=torch.float32, device=dev)
+    dD = torch.empty((di,), dtype=torch.float32, device=dev)
+    lib = build.library("selective_scan_bwd")
+    n = lib.selective_scan_bwd_scratch_floats(bt, length, di, s)
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev)
+    index = build.device_index(dev)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    build.check(lib.selective_scan_bwd_launch(
+        u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(), gy.data_ptr(), gh.data_ptr(),
+        du.data_ptr(), ddelta.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+        dC.data_ptr(), dD.data_ptr(), scratch.data_ptr(), n, bt, length,
+        di, s, DTYPE_CODES[u.dtype], index, stream), "selective_scan_bwd")
+    counters.record_device("selective_scan_bwd")
+    return du, ddelta, dA, dB, dC, dD
 
 
 def kernel_attributes(dtype: torch.dtype, aligned: bool,

@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..sharding import local_shard, shard, weight_for
+from ..sharding import local_shard, shard, splittable, weight_for
 from .layers import mlp
 
 
@@ -175,7 +175,9 @@ def _grouped_moe(xg: torch.Tensor, p: MoEParams, k: int, cap: int,
         lambda x, r: _dispatch(x, r, k, cap), xg, shared=(p.router,))
     xe = shard(xe.transpose(0, 1), "experts", "groups", "cap", None)
     ye = _expert_ffn(xe.reshape(e, g * cap, d), p, gated)    # [E, G*C, d]
-    ye = shard(ye.reshape(e, g, cap, d), "experts", "groups", "cap", None)
+    # the view splits G*C: its shards must divide G, as for the input
+    ye = shard(splittable(ye, 1, g).reshape(e, g, cap, d), "experts",
+               "groups", "cap", None)
     ye = ye.transpose(0, 1)                                  # [G, E, C, d]
     return _per_group(_combine, ye, disp_gate, by_slot)
 

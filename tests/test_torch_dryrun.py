@@ -6,7 +6,7 @@
   every ``ARCH_ID`` × applicable shape at full size, block leaves less
   the reference's leading ``"layers"`` axis (exact); ``model_flops``
   equal (exact).
-* ``run_cell(..., "debug", "baseline", smoke=True)`` gives ``ok`` for six
+* ``run_cell(..., "debug", "baseline", smoke=True)`` gives ``ok`` for seven
   cells, with FLOPs per device within 5 % of the reference's
   ``build_cell`` compiled on a 4 × 2 mesh of Auto axes in a subprocess
   (its own ``test_small_mesh_lower_compile`` mesh has Explicit axes under
@@ -60,11 +60,12 @@ def _reference(name):
         else:
             os.environ["XLA_FLAGS"] = prev
 
-SIX = [("qwen3-1.7b", "train_4k", "ref"),
+CELLS = [("qwen3-1.7b", "train_4k", "ref"),
        ("qwen3-moe-30b-a3b", "train_4k", "ref"),
        ("qwen3-moe-30b-a3b", "decode_32k", "ref"),
        ("whisper-medium", "prefill_32k", "ref"),
        ("jamba-1.5-large-398b", "prefill_32k", "ref"),
+       ("jamba-1.5-large-398b", "decode_32k", "ref"),
        ("falcon-mamba-7b", "train_4k", "stub")]
 
 
@@ -151,14 +152,14 @@ REF_PROG = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def reference_flops():
     out = subprocess.run(
-        [sys.executable, "-c", REF_PROG, SRC] + [":".join(c) for c in SIX],
+        [sys.executable, "-c", REF_PROG, SRC] + [":".join(c) for c in CELLS],
         capture_output=True, text=True, timeout=600)
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
     assert line, out.stdout + out.stderr[-3000:]
     return json.loads(line[0][len("RESULT "):])
 
 
-@pytest.mark.parametrize("arch,shape,scan", SIX)
+@pytest.mark.parametrize("arch,shape,scan", CELLS)
 def test_small_mesh_flops_match_reference(arch, shape, scan,
                                           reference_flops):
     rec = dryrun.run_cell(arch, shape, "debug", "baseline", smoke=True,

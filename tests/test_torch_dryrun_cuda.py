@@ -110,7 +110,8 @@ MAMBA_CELLS = [("falcon-mamba-7b", "train_4k", "stub"),
                ("falcon-mamba-7b", "prefill_32k", "ref"),
                ("falcon-mamba-7b", "decode_32k", "ref"),
                ("jamba-1.5-large-398b", "train_4k", "ref"),
-               ("jamba-1.5-large-398b", "prefill_32k", "ref")]
+               ("jamba-1.5-large-398b", "prefill_32k", "ref"),
+               ("jamba-1.5-large-398b", "decode_32k", "ref")]
 
 
 @pytest.mark.parametrize("arch,shape,scan", MAMBA_CELLS)

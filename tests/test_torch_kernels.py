@@ -13,7 +13,10 @@ score.  The selective scan is float32 and is held within 2e-4 (the
 reference's own tolerance, ``test_kernels.py``) on the CPU and 1e-4 on
 the card: the versions order their sums differently.  On the card its
 bf16 and fp16 reads are held bitwise against the same values upcast to
-float32: widening is exact.
+float32: widening is exact.  Its gradient on the card is the backward
+kernel's, held within 1e-4 (float32), 1e-2 (bf16) or 1e-3 (fp16) of each
+gradient's largest magnitude in the plain backward: the narrow
+gradients may round one unit apart.
 
 The ``cuda`` tests hold each CUDA kernel against its plain version on
 the card and skip without one.  They need no JAX, so they also run on a
@@ -785,28 +788,63 @@ def test_selective_scan_grad_matches_reference_vjp(jx):
         _close(x.grad, w, 1e-4)
 
 
+#: each gradient within this share of its largest magnitude in the plain
+#: backward, by the gradient's dtype (narrow types: one unit of rounding)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+#: u, delta, B, C types: one shared type, or mixed (the wrappers cast all
+#: four to float32 and each gradient back to its input's type)
+SCAN_GRAD_TYPES = {"float32": (torch.float32,) * 4,
+                   "bfloat16": (torch.bfloat16,) * 4,
+                   "float16": (torch.float16,) * 4,
+                   "mixed": (torch.bfloat16, torch.float32, torch.float16,
+                             torch.bfloat16)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_selective_scan_cuda_carries_the_plain_gradient(cuda, dtype):
-    """On the card the outputs have a ``grad_fn`` and the gradients equal
-    the plain version's (computed under autograd on the same inputs)."""
-    bt, l, di, s = 2, 37, 64, 5
+@pytest.mark.parametrize("types", list(SCAN_GRAD_TYPES))
+@pytest.mark.parametrize("bt,l,di,s,with_h", [
+    (2, 37, 64, 5, True), (2, 37, 64, 16, False), (2, 130, 4001, 32, True),
+    (1, 1, 4001, 16, True), (3, 1, 77, 5, False)])
+def test_selective_scan_cuda_carries_the_plain_gradient(cuda, types, bt, l,
+                                                        di, s, with_h):
+    """On the card the gradient is the backward kernel's: one
+    ``selective_scan_bwd`` launch per forward launch (two past 16
+    states), each gradient in its input's dtype and within ``GRAD_TOL``
+    of its largest magnitude in the plain backward
+    (``selective_scan_bwd_ref``) and in autograd of the plain forward;
+    two runs bitwise equal.  ``with_h`` False leaves ``h_last`` unused
+    (autograd hands the kernel zeros)."""
     args = _scan_inputs(bt, l, di, s)
     gy, gh = (torch.from_numpy(c).to(cuda)
               for c in _scan_cotangents(bt, l, di, s))
+    dtypes = (SCAN_GRAD_TYPES[types][:2] + (torch.float32,)
+              + SCAN_GRAD_TYPES[types][2:] + (torch.float32,))
+    inputs = [torch.from_numpy(x).to(cuda).to(t)
+              for x, t in zip(args, dtypes)]
 
     def grads(run):
-        xs = [x.detach().clone().requires_grad_()
-              for x in _scan_on(cuda, args, dtype)]
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
         y, h = run(*xs)
-        torch.autograd.backward((y, h), (gy, gh))
+        if with_h:
+            torch.autograd.backward((y, h), (gy, gh))
+        else:
+            torch.autograd.backward(y, gy)
         return y, [x.grad for x in xs]
 
     counters.reset_device_launches()
     y, got = grads(t_scan.selective_scan)
+    torch.cuda.synchronize()
     assert y.grad_fn is not None
-    assert counters.device_launch_stats() == {"selective_scan": 1}
-    _, want = grads(tref.selective_scan_ref)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
-        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    n = -(-s // t_scan.MAX_S)
+    assert counters.device_launch_stats() == {"selective_scan": n,
+                                              "selective_scan_bwd": n}
+    _, again = grads(t_scan.selective_scan)
+    plain = tref.selective_scan_bwd_ref(
+        *inputs, gy, gh if with_h else torch.zeros_like(gh))
+    _, autograd = grads(tref.selective_scan_ref)
+    for g, g2, p, a, x in zip(got, again, plain, autograd, inputs):
+        assert g.dtype == p.dtype == a.dtype == x.dtype
+        assert torch.equal(g, g2)
+        for w in (p, a):
+            bound = GRAD_TOL[x.dtype] * max(float(w.abs().max()), 1e-30)
+            assert float((g.float() - w.float()).abs().max()) <= bound

@@ -7,9 +7,10 @@
   parameters after the step within 1e-4.
 * ``selective_scan`` CUDA launches per falcon-mamba step: layers x
   micro-batches with ``remat="none"``, twice that with ``"full"`` and
-  ``"dots"`` (the recomputed forward); the backward is the plain
-  version's VJP.
-* The scan's batch chunks past 65535 rows, against the plain version.
+  ``"dots"`` (the recomputed forward), and ``selective_scan_bwd``
+  layers x micro-batches; the step's gradients against the CPU's.
+* The scan's batch chunks past 65535 rows, forward and backward, against
+  the plain versions.
 
 Imports no JAX and nothing of the reference, so it runs on a GPU machine
 with the port alone::
@@ -77,15 +78,28 @@ def test_scan_launches_per_train_step(cuda_dev, remat, per_layer):
     model = build_model(cfg, cuda_dev)
     params = model.init_params(seed=0)
     ocfg = AdamWConfig()
-    step = make_train_step(model, ocfg, TrainStepConfig(microbatches=2,
-                                                        remat=remat))
+    tcfg = TrainStepConfig(microbatches=2, remat=remat)
+    step = make_train_step(model, ocfg, tcfg)
     opt = adamw_init(params, ocfg)
+    start = copy.deepcopy(params).to("cpu")
     batch = copy_task_batch(cfg, 4, 32, 0, device=cuda_dev)
+    counters.reset_device_launches()
+    grads, _ = make_grad_fn(model, tcfg)(params, batch)
+    torch.cuda.synchronize()
+    assert counters.device_launch_stats() == {
+        "selective_scan": cfg.n_layers * per_layer * 2,
+        "selective_scan_bwd": cfg.n_layers * 2}
+    want, _ = make_grad_fn(build_model(cfg, "cpu"), tcfg)(
+        start, copy_task_batch(cfg, 4, 32, 0, device="cpu"))
+    for n, g in want.items():
+        bound = 1e-3 * max(float(g.abs().max()), 1e-30)
+        assert float((grads[n].cpu() - g).abs().max()) <= bound, n
     counters.reset_device_launches()
     params, opt, met = step(params, opt, batch)
     torch.cuda.synchronize()
     assert counters.device_launch_stats() == {
-        "selective_scan": cfg.n_layers * per_layer * 2}
+        "selective_scan": cfg.n_layers * per_layer * 2,
+        "selective_scan_bwd": cfg.n_layers * 2}
     assert bool(torch.isfinite(met["loss"]))
 
 
@@ -98,12 +112,20 @@ def test_selective_scan_chunks_the_batch_past_65535(cuda_dev):
     delta = torch.rand((bt, length, di), generator=g) * 0.1
     A = -torch.rand((di, s), generator=g)
     D = torch.randn((di,), generator=g)
-    args = [t.to(cuda_dev) for t in (u, delta, A, B, C, D)]
+    args = [t.to(cuda_dev).requires_grad_() for t in (u, delta, A, B, C, D)]
+    gy = torch.randn((bt, length, di), generator=g).to(cuda_dev)
+    gh = torch.randn((bt, di, s), generator=g).to(cuda_dev)
     counters.reset_device_launches()
     y, h = k_scan.selective_scan(*args)
+    torch.autograd.backward((y, h), (gy, gh))
     torch.cuda.synchronize()
-    assert counters.device_launch_stats() == {"selective_scan": 2}
-    want_y, want_h = ref.selective_scan_ref(*args)
+    assert counters.device_launch_stats() == {"selective_scan": 2,
+                                              "selective_scan_bwd": 2}
+    plain = [t.detach() for t in args]
+    want_y, want_h = ref.selective_scan_ref(*plain)
     assert y.shape == (bt, length, di) and h.shape == (bt, di, s)
-    torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(h, want_h, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y.detach(), want_y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h.detach(), want_h, atol=1e-5, rtol=1e-5)
+    for x, w in zip(args, ref.selective_scan_bwd_ref(*plain, gy, gh)):
+        bound = 1e-4 * max(float(w.abs().max()), 1e-30)
+        assert float((x.grad - w).abs().max()) <= bound
