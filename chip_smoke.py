@@ -180,14 +180,15 @@ and drives the simulator's main path on the card:
    and Mamba layers x micro-batches ``selective_scan_bwd``;
 6c. (after 16) the backward kernel (``selective_scan_bwd``) against the
    plain backward (``selective_scan_bwd_ref``) and autograd of the plain
-   forward: edge cases (S 5, 16 and 32, L 1, 37 and 1000, Di 77, 64 and
-   4001, float32, bf16, fp16 and mixed types, h_last used or not) through
-   the scan's autograd, then phase 15b's and phase 16's Jamba largest
-   scan inputs through the wrapper; each gradient within 1e-4 (float32),
-   1e-2 (bf16) or 1e-3 (fp16) of its largest magnitude in either plain
-   version, two runs bitwise equal; its time, device time (phase 15a's
-   fresh process), the plain backward's and the plain VJP's time, and its
-   bound;
+   forward: edge cases (S 1, 5, 16 and 32, L 1, 7, 8, 9, 17, 37 and 1000,
+   Di 63, 64, 65, 77 and 4001, float32, bf16, fp16 and mixed types,
+   h_last used or not) through the scan's autograd, then phase 15b's and
+   phase 16's Jamba largest scan inputs through the wrapper; each
+   gradient within 1e-4 (float32), 1e-2 (bf16) or 1e-3 (fp16) of its
+   largest magnitude in either plain version, two runs bitwise equal; its
+   time, device time (phase 15a's fresh process), the plain backward's
+   and the plain VJP's time, its bound, and its walk kernel's registers,
+   shared memory and resident warps with the grid's waves at each shape;
 15c. (after 16) qwen3-moe-30b-a3b at full width cut to 4 layers (~3.1B
    parameters), bf16, 10 steps of the copy task at batch 8 x 512 with
    ``remat="full"``: finite losses that fall, step time, tokens/s and
@@ -1142,16 +1143,23 @@ def check_scan(dev, served, launches):
 
 
 # (Bt, L, Di, S, u/delta/B/C types, h_last used): S 5, 16 and 32 (two
-# launches), L 1 and past the 16-step chunks, Di 4001 and past the
-# 64-channel tile, every input type and a mix (cast to float32, each
-# gradient back to its input's type)
+# launches), L 1 and past the chunks, Di 4001 and past the 64-channel
+# tile, every input type and a mix (cast to float32, each gradient back
+# to its input's type); then the kernel's edges: L one short of, at and
+# one past its 8-step chunk and one past two stages (7, 8, 9, 17), Di one
+# short of and past the tile (63, 65), S 1 and 16
 BWD_MIXED = (torch.bfloat16, torch.bfloat16, torch.float16, torch.float32)
 BWD_CASES = ((2, 37, 64, 5, (torch.float32,) * 4, True),
              (2, 37, 64, 16, (torch.bfloat16,) * 4, False),
              (2, 130, 4001, 32, (torch.float16,) * 4, True),
              (1, 1, 4001, 16, BWD_MIXED, True),
              (3, 1, 77, 5, (torch.float32,) * 4, False),
-             (1, 1000, 77, 13, (torch.bfloat16,) * 4, True))
+             (1, 1000, 77, 13, (torch.bfloat16,) * 4, True),
+             (1, 7, 63, 16, (torch.float32,) * 4, True),
+             (2, 8, 65, 1, (torch.bfloat16,) * 4, False),
+             (1, 9, 63, 16, (torch.float16,) * 4, True),
+             (2, 17, 65, 16, BWD_MIXED, True),
+             (2, 17, 63, 1, (torch.float32,) * 4, False))
 #: each gradient within this share of its largest magnitude in the plain
 #: backward, by its dtype (narrow types: one unit of rounding apart)
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-3}
@@ -1242,6 +1250,14 @@ def check_scan_bwd(dev, paths, launches, device):
         torch.cuda.synchronize()
         vjp_ms = (time.perf_counter() - t0) * 1e3
         b_ms, b_by = bound("selective_scan_bwd", shapes)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for aligned in (True, False):
+            att = k_scan.bwd_kernel_attributes(u.dtype, dev, aligned)
+            grid = -(-u.shape[2] // att["channels_per_block"]) * u.shape[0]
+            log({"phase": "build", "kernel": "selective_scan_bwd",
+                 "path": path, "dtype": str(u.dtype), "aligned": aligned,
+                 **att, "grid_blocks": grid, "sms": sms,
+                 "waves": grid / (att["blocks_per_sm"] * sms)})
         log({"phase": "kernel", "name": "selective_scan_bwd", "path": path,
              "shape": list(shapes), "dtype": str(u.dtype),
              "cases": len(BWD_CASES) + len(paths),

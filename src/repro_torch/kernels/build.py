@@ -62,6 +62,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         + [_I] * 6 + [_P],
         # Bt, L, Di, S -> float32 scratch elements of a launch
         "selective_scan_bwd_scratch_floats": [_I, _I, _I, _I],
+        # dtype code, aligned, device, int out[6]
+        "selective_scan_bwd_attributes": [_I, _I, _I, _P],
     },
     "fleet_engine": {
         # field pointers, field strides, n_fields, scratch, B, M, N, R, K,

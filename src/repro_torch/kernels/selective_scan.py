@@ -9,7 +9,8 @@ lanes, stages the inputs in shared memory and reads ``u``, ``delta``,
 ``ref.selective_scan_ref``.  On the card the gradient is the backward
 kernel's (``csrc/selective_scan_bwd.cu``, :class:`_ScanWithKernelGrad`):
 the reverse recurrence over the saved inputs, the forward's states
-recomputed from checkpoints at chunk starts; its plain version is
+recomputed from checkpoints at chunk starts, each chunk's inputs staged
+in shared memory ahead of use; its plain version is
 ``ref.selective_scan_bwd_ref``.  On the CPU autograd differentiates the
 plain forward.
 """
@@ -209,3 +210,24 @@ def kernel_attributes(dtype: torch.dtype, aligned: bool,
     return {"registers": regs, "smem_static_bytes": smem_static,
             "smem_dynamic_bytes": smem_dynamic, "threads": threads,
             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32}
+
+
+def bwd_kernel_attributes(dtype: torch.dtype, device=None,
+                          aligned: bool = True) -> Dict[str, int]:
+    """What the backward's walk kernel for ``dtype`` (``aligned``: the rows
+    of ``u``, ``delta`` and ``gy`` start at multiples of 16 bytes, as at
+    the model's widths) uses on the card: registers per thread, static and
+    dynamic shared memory per block, threads per block, resident blocks
+    and warps per SM (the occupancy calculator's) and channels per block
+    (a launch's grid is ``ceil(Di / channels) x Bt`` blocks)."""
+    dev = torch.device("cuda" if device is None else device)
+    out = (ctypes.c_int * 6)()
+    build.check(
+        build.library("selective_scan_bwd").selective_scan_bwd_attributes(
+            DTYPE_CODES[dtype], int(aligned), build.device_index(dev),
+            ctypes.addressof(out)), "selective_scan_bwd_attributes")
+    regs, smem_static, smem_dynamic, threads, blocks, channels = out
+    return {"registers": regs, "smem_static_bytes": smem_static,
+            "smem_dynamic_bytes": smem_dynamic, "threads": threads,
+            "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32,
+            "channels_per_block": channels}

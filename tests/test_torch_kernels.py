@@ -804,7 +804,12 @@ SCAN_GRAD_TYPES = {"float32": (torch.float32,) * 4,
 @pytest.mark.parametrize("types", list(SCAN_GRAD_TYPES))
 @pytest.mark.parametrize("bt,l,di,s,with_h", [
     (2, 37, 64, 5, True), (2, 37, 64, 16, False), (2, 130, 4001, 32, True),
-    (1, 1, 4001, 16, True), (3, 1, 77, 5, False)])
+    (1, 1, 4001, 16, True), (3, 1, 77, 5, False),
+    # the backward kernel's edges: L one short of, at and one past its
+    # 8-step chunk, one past two stages (17) and past three chunks (25);
+    # Di one short of and past its 64-channel tile; S 1 and 16
+    (1, 7, 63, 16, True), (2, 8, 65, 1, False), (1, 9, 63, 16, True),
+    (2, 17, 65, 1, True), (1, 17, 63, 16, False), (2, 25, 65, 16, True)])
 def test_selective_scan_cuda_carries_the_plain_gradient(cuda, types, bt, l,
                                                         di, s, with_h):
     """On the card the gradient is the backward kernel's: one
@@ -848,3 +853,18 @@ def test_selective_scan_cuda_carries_the_plain_gradient(cuda, types, bt, l,
         for w in (p, a):
             bound = GRAD_TOL[x.dtype] * max(float(w.abs().max()), 1e-30)
             assert float((g.float() - w.float()).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(t_scan.DTYPE_CODES))
+def test_selective_scan_bwd_grid_fits_in_one_wave(cuda, dtype):
+    """The backward's walk kernel at the training shape (Bt 2 x Di 8192):
+    its ``ceil(Di / channels) x Bt`` blocks all resident at once on the
+    card's SMs, at the blocks per SM the occupancy calculator gives for
+    its registers and shared memory (two, the design's 32 warps)."""
+    att = t_scan.bwd_kernel_attributes(dtype, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    grid = -(-8192 // att["channels_per_block"]) * 2
+    assert att["blocks_per_sm"] >= 2, att
+    assert grid <= att["blocks_per_sm"] * sms, (grid, sms, att)
+    assert att["warps_per_sm"] == att["blocks_per_sm"] * att["threads"] // 32

@@ -6,8 +6,9 @@ reference, on the CPU.
   selective_scan_ref`` and against torch autograd of the port's
   ``selective_scan_ref``, within 1e-5 of each gradient's largest
   magnitude in float32: S 4, 16 and 17 (past the kernel's 16 states), L 1
-  and 37 (past the kernel's 16-step chunks), Di 1 and 33, Bt 1 and 3,
-  ``gh`` zero (``h_last`` unused) and nonzero.
+  and 37, Di 1 and 33, Bt 1 and 3, ``gh`` zero (``h_last`` unused) and
+  nonzero; and at the backward kernel's chunk, stage and tile edges (L 7,
+  8, 9, 17; Di 63, 65; S 1, 16).
 * Narrow inputs: each gradient comes back in its input's dtype, as
   autograd of the plain forward gives it.
 * On the CPU the wrapper's gradient is autograd of the plain forward,
@@ -55,10 +56,25 @@ def _close_to_largest(got, want, tol, name):
 NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD")
 
 
-@pytest.mark.parametrize("gh_zero", [True, False], ids=["gh0", "gh"])
-@pytest.mark.parametrize("bt,di", [(1, 1), (1, 33), (3, 1), (3, 33)])
-@pytest.mark.parametrize("length", [1, 37])
-@pytest.mark.parametrize("s", [4, 16, 17])
+#: (S, L, Bt, Di, gh zero): every S of (4, 16, 17) with every L of (1, 37),
+#: (Bt, Di) of (1, 1), (1, 33), (3, 1), (3, 33) and gh zero or not; then
+#: the backward kernel's edges (its yardstick on the card is this plain
+#: backward): L one short of, at and one past its 8-step chunk and one
+#: past two stages (7, 8, 9, 17), Di one short of and past its 64-channel
+#: tile (63, 65), S 1 and 16
+PLAIN_CASES = [(s, length, bt, di, gh_zero)
+               for s in (4, 16, 17) for length in (1, 37)
+               for bt, di in ((1, 1), (1, 33), (3, 1), (3, 33))
+               for gh_zero in (True, False)] + [
+    (16, 7, 1, 63, False), (1, 7, 2, 65, True), (16, 8, 2, 65, False),
+    (1, 8, 1, 63, True), (16, 9, 1, 65, True), (1, 9, 2, 63, False),
+    (16, 17, 2, 63, False), (1, 17, 1, 65, False), (16, 17, 1, 65, True)]
+
+
+@pytest.mark.parametrize(
+    "s,length,bt,di,gh_zero", PLAIN_CASES,
+    ids=[f"{s}-{length}-{bt}-{di}-{'gh0' if z else 'gh'}"
+         for s, length, bt, di, z in PLAIN_CASES])
 def test_plain_backward_matches_reference_vjp(s, length, bt, di, gh_zero):
     args, (gy, gh) = _inputs(bt, length, di, s, gh_zero)
     _, vjp = jax.vjp(jref.selective_scan_ref, *map(jnp.asarray, args))
