@@ -1,0 +1,15 @@
+"""results.rss_ms: the program's counter ``results.rss`` (each
+``rss_mb()`` read in ``FleetResult.summary``; the recorder
+``repro_torch.telemetry.spans``, on while the profiler captures), in ms,
+summed over the traced window and divided by its requests (grids)."""
+
+
+def read(run):
+    try:
+        from repro_torch.telemetry import spans
+    except ImportError:
+        return None
+    tot = spans.totals().get("results.rss")
+    if not run.requests or tot is None:
+        return None
+    return tot["seconds"] * 1e3 / run.requests

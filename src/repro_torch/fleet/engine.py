@@ -57,6 +57,7 @@ version, nothing else.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +66,7 @@ import torch
 from ..kernels import build, counters, ref
 from ..kernels.ebf_shadow import shadow_walk
 from ..kernels.ops import resolve_device
+from ..telemetry import spans
 from .state import (COMPLETED, INF_I, QUEUED, REJECTED, RUNNING, SimState,
                     UNSET_I)
 
@@ -541,24 +543,49 @@ def _tele_row(t, queue, w) -> torch.Tensor:
 # ----------------------------------------------------------------------
 def stack(states: List[SimState], device) -> SimState:
     """Stack equally shaped numpy states along a leading sim axis into
-    one contiguous int32 tensor per field on ``device``."""
-    return SimState(*(
-        torch.from_numpy(np.ascontiguousarray(np.stack(
-            [np.asarray(getattr(s, k)) for s in states]), dtype=np.int32)
-        ).to(device)
-        for k in SimState._fields))
+    one contiguous int32 tensor per field on ``device``.  Span
+    ``fleet.stack``; while tracing is on, each field's ``.to(device)``
+    adds its seconds and bytes to counter ``fleet.h2d``."""
+    with spans.span("fleet.stack") as span:
+        fields = []
+        h2d_s = 0.0
+        h2d_bytes = 0
+        for k in SimState._fields:
+            host = np.ascontiguousarray(np.stack(
+                [np.asarray(getattr(s, k)) for s in states]), dtype=np.int32)
+            t0 = time.perf_counter() if span else 0.0
+            fields.append(torch.from_numpy(host).to(device))
+            if span:
+                h2d_s += time.perf_counter() - t0
+                h2d_bytes += host.nbytes
+        if span:
+            spans.count("fleet.h2d", len(fields), h2d_s, h2d_bytes)
+        return SimState(*fields)
 
 
 def unstack(batch: SimState) -> List[SimState]:
-    """The numpy states of a stacked batch, one per sim."""
-    host = [np.asarray(t.cpu()) for t in batch]
-    return [SimState(*(a[i] if a.ndim > 1 else a[i].astype(np.int32)
-                       for a in host))
-            for i in range(host[0].shape[0])]
+    """The numpy states of a stacked batch, one per sim.  Span
+    ``fleet.unstack``; while tracing is on, a CUDA batch's stream is
+    synchronised first (span ``fleet.kernel.wait``: the wait the first
+    copy would make), and each field's ``.cpu()`` adds its seconds and
+    bytes to counter ``fleet.d2h``."""
+    with spans.span("fleet.unstack") as span:
+        dev = batch.submit.device
+        if span and dev.type == "cuda":
+            with spans.span("fleet.kernel.wait"):
+                torch.cuda.current_stream(dev).synchronize()
+        t0 = time.perf_counter() if span else 0.0
+        host = [np.asarray(t.cpu()) for t in batch]
+        if span:
+            spans.count("fleet.d2h", len(host), time.perf_counter() - t0,
+                        sum(t.nbytes for t in batch))
+        return [SimState(*(a[i] if a.ndim > 1 else a[i].astype(np.int32)
+                           for a in host))
+                for i in range(host[0].shape[0])]
 
 
 def advance(state: SimState, use_kernel: bool = False,
-            device=None) -> SimState:
+            device=None, events: Optional[list] = None) -> SimState:
     """Run sims to completion.
 
     ``state`` is either ONE numpy :class:`SimState` (as the state module
@@ -566,14 +593,16 @@ def advance(state: SimState, use_kernel: bool = False,
     a numpy state; or a batch of tensors with a leading sim axis
     (:func:`stack`), updated in place on their own device and returned.
     CUDA tensors launch the ``fleet_engine`` kernel, once for the whole
-    batch; CPU tensors run :func:`advance_plain` sim by sim.
+    batch; CPU tensors run :func:`advance_plain` sim by sim.  A launch
+    appends its ``(start, end)`` CUDA events, recorded on its stream
+    around the kernel, to ``events`` where one is given.
     """
     if not isinstance(state.submit, torch.Tensor):
         batch = stack([state], resolve_device(device))
         return unstack(advance(batch, use_kernel))[0]
     dev = state.submit.device
     if build.launch_target(dev):
-        _launch_kernel(state, use_kernel)
+        _launch_kernel(state, use_kernel, events)
         return state
     for b in range(state.submit.shape[0]):
         out = advance_plain(SimState(*(t[b] for t in state)), use_kernel)
@@ -585,11 +614,14 @@ def advance(state: SimState, use_kernel: bool = False,
 # ----------------------------------------------------------------------
 # the kernel
 # ----------------------------------------------------------------------
-def _launch_kernel(batch: SimState, use_kernel: bool) -> None:
+def _launch_kernel(batch: SimState, use_kernel: bool,
+                   events: Optional[list] = None) -> None:
     """Launch ``fleet_engine`` on a stacked CUDA batch, in place: one
     thread block per sim, at any N and R (the node arrays live in shared
     memory where they fit, else in the scratch; shapes past the kernel's
-    fast paths launch the instances of ``csrc/fleet_engine_wide.cu``)."""
+    fast paths launch the instances of ``csrc/fleet_engine_wide.cu``).
+    With ``events``, appends a ``(start, end)`` pair of CUDA events
+    recorded on the launch's stream around the kernel."""
     dev = batch.submit.device
     for name, t in zip(SimState._fields, batch):
         build.check_input(t, name, t.dim(), dev)
@@ -616,9 +648,17 @@ def _launch_kernel(batch: SimState, use_kernel: bool) -> None:
     scratch = torch.empty((b, per_sim), dtype=torch.int32, device=dev)
     ptrs = (ctypes.c_uint64 * len(batch))(*(t.data_ptr() for t in batch))
     strides = (ctypes.c_int64 * len(batch))(*(t[0].numel() for t in batch))
-    stream = torch.cuda.current_stream(index).cuda_stream
-    build.check(lib.fleet_engine_launch(
+    stream = torch.cuda.current_stream(index)
+    if events is not None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    err = lib.fleet_engine_launch(
         ctypes.addressof(ptrs), ctypes.addressof(strides), len(batch),
         scratch.data_ptr(), b, m, n, r, k, e, f, s, int(use_kernel), index,
-        stream), "fleet_engine")
+        stream.cuda_stream)
+    if events is not None:
+        end.record(stream)
+        events.append((start, end))
+    build.check(err, "fleet_engine")
     counters.record_device("fleet_engine")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..telemetry import spans
 from ..utils import rss_mb
 from ..kernels.ops import resolve_device
 from .engine import ALLOC_NAMES, SCHED_EBF, SCHED_NAMES, advance, stack, unstack
@@ -76,7 +77,9 @@ class FleetResult:
     n_devices: int = 1
     cache_hit: bool = False       # every launch's shape was seen before
     # per-launch telemetry when run() split the grid by dispatch cost
-    # class: [{"cost_class", "n_sims", "wall_time_s", ...}, ...]
+    # class: [{"cost_class", "n_sims", "wall_time_s", ...}, ...];
+    # "device_time_s" is the kernel's time on the card (CUDA events
+    # around the launch; the longest device's), None on the CPU
     launches: List[Dict] = field(default_factory=list)
 
     def __len__(self) -> int:
@@ -85,13 +88,20 @@ class FleetResult:
     # ------------------------------------------------------------------
     def summary(self, i: int) -> Dict[str, object]:
         """Host ``Simulator.summary``-schema summary for sim ``i``;
-        wall/cpu/dispatch seconds are the batched run amortized per sim."""
+        wall/cpu/dispatch seconds are the batched run amortized per sim.
+        While tracing is on, counts itself (``results.summary``) and its
+        RSS read (``results.rss``)."""
+        traced = spans.on()
+        t0 = time.perf_counter() if traced else 0.0
         f, sim = self.finals[i], self.sims[i]
         n_events = int(f.n_events)
         n_rounds = int(f.n_rounds)
         per_sim = self.wall_time_s / max(len(self.sims), 1)
         launches = n_rounds if self.use_kernel else 0
+        t_rss = time.perf_counter() if traced else 0.0
         rss = rss_mb()
+        if traced:
+            spans.count("results.rss", seconds=time.perf_counter() - t_rss)
         out = {
             "dispatcher": f"{SCHED_NAMES[sim.sched_id]}-"
                           f"{ALLOC_NAMES[sim.alloc_id]}",
@@ -125,6 +135,8 @@ class FleetResult:
             }
         if sim.seed is not None:
             out["seed"] = sim.seed
+        if traced:
+            spans.count("results.summary", seconds=time.perf_counter() - t0)
         return out
 
     # ------------------------------------------------------------------
@@ -337,13 +349,15 @@ class FleetRunner:
         ``quarantine_s`` / ``ckpt_every_s`` install a device-resident
         FAIL/REPAIR schedule (``Simulator(failures=...)`` semantics).
         ``telemetry_stride`` > 0 allocates device-resident telemetry
-        buffers (DESIGN.md §10) decoded by ``FleetResult.telemetry``."""
-        state, meta = SimState.from_workload(
-            workload, sys_config, job_factory=job_factory,
-            sched_id=sched_id, alloc_id=alloc_id, failures=failures,
-            quarantine_s=quarantine_s, ckpt_every_s=ckpt_every_s,
-            telemetry_stride=telemetry_stride,
-            telemetry_samples=telemetry_samples)
+        buffers (DESIGN.md §10) decoded by ``FleetResult.telemetry``.
+        A set-up span, ``fleet.build``."""
+        with spans.setup_span("fleet.build", sim=name):
+            state, meta = SimState.from_workload(
+                workload, sys_config, job_factory=job_factory,
+                sched_id=sched_id, alloc_id=alloc_id, failures=failures,
+                quarantine_s=quarantine_s, ckpt_every_s=ckpt_every_s,
+                telemetry_stride=telemetry_stride,
+                telemetry_samples=telemetry_samples)
         return FleetSim(name=name, state=state, meta=meta,
                         sched_id=sched_id, alloc_id=alloc_id, seed=seed)
 
@@ -357,7 +371,8 @@ class FleetRunner:
         of its batch either way (pinned by tests).  Homogeneous batches
         always take the single-launch path; ``wall_time_s`` /
         ``compile_time_s`` sum over launches and ``cache_hit`` reports
-        whether *every* launch's shape was seen before.
+        whether *every* launch's shape was seen before.  Span
+        ``fleet.run``, with a new grid id.
         """
         if not sims:
             raise ValueError("empty fleet")
@@ -373,24 +388,26 @@ class FleetRunner:
         cache_hit = True
         n_dev = 1
         launches: List[Dict] = []
-        for idx in groups:
-            part, w, c, hit, nd = self._launch([sims[i] for i in idx])
-            for j, i in enumerate(idx):
-                finals[i] = part[j]
-            wall += w
-            compile_time += c
-            cache_hit &= hit
-            n_dev = max(n_dev, nd)
-            classes = {"ebf" if sims[i].sched_id == SCHED_EBF else "blocking"
-                       for i in idx}
-            launches.append({
-                "cost_class": classes.pop() if len(classes) == 1 else "mixed",
-                "n_sims": len(idx),
-                "events": sum(int(part[j].n_events) for j in range(len(idx))),
-                "wall_time_s": round(w, 6),
-                "compile_time_s": round(c, 6),
-                "cache_hit": hit,
-            })
+        with spans.span("fleet.run", new_grid=True, n_sims=len(sims)):
+            for idx in groups:
+                group = [sims[i] for i in idx]
+                part, w, c, hit, nd, device_s = self._launch(group)
+                for j, i in enumerate(idx):
+                    finals[i] = part[j]
+                wall += w
+                compile_time += c
+                cache_hit &= hit
+                n_dev = max(n_dev, nd)
+                launches.append({
+                    "cost_class": _cost_class(group),
+                    "n_sims": len(idx),
+                    "events": sum(int(part[j].n_events)
+                                  for j in range(len(idx))),
+                    "wall_time_s": round(w, 6),
+                    "compile_time_s": round(c, 6),
+                    "cache_hit": hit,
+                    "device_time_s": device_s,
+                })
         return FleetResult(sims=list(sims), finals=finals,
                            wall_time_s=wall, compile_time_s=compile_time,
                            use_kernel=self.use_kernel, n_devices=n_dev,
@@ -400,37 +417,59 @@ class FleetRunner:
     def _launch(self, sims: Sequence[FleetSim]):
         """One padded/stacked launch of a homogeneous-cost batch, split
         across the devices; returns ``(finals, wall_s, compile_s,
-        cache_hit, n_devices)``."""
-        m = _bucket_rows(max(s.state.n_rows for s in sims))
-        k = _bucket_width(max(s.state.assigned.shape[1] for s in sims))
-        # failure schedules pad like jobs: bucket to a multiple of 16;
-        # fev == 0 (no sim in the batch has a schedule) selects the
-        # failure-free kernel
-        fev = max(s.state.fail_ev.shape[0] for s in sims)
-        fev = -(-fev // 16) * 16 if fev else 0
-        # telemetry sample capacity buckets like rows (multiple of 64);
-        # ts == 0 (no sim carries buffers) selects the telemetry-free
-        # kernel
-        ts = max(s.state.tele_buf.shape[0] for s in sims)
-        ts = -(-ts // _BUCKET_ROWS) * _BUCKET_ROWS if ts else 0
-        padded = [s.state.pad_to(m, k, fev, ts) for s in sims]
+        cache_hit, n_devices, device_s)``, ``device_s`` the kernel's
+        time on the card (the longest device's; None on the CPU).  Span
+        ``fleet.launch``, with ``fleet.pad`` around the padding."""
+        with spans.span("fleet.launch", n_sims=len(sims)) as span:
+            m = _bucket_rows(max(s.state.n_rows for s in sims))
+            k = _bucket_width(max(s.state.assigned.shape[1] for s in sims))
+            if span:
+                span.set(cost_class=_cost_class(sims), m=m, k=k)
+            # failure schedules pad like jobs: bucket to a multiple of
+            # 16; fev == 0 (no sim in the batch has a schedule) selects
+            # the failure-free kernel
+            fev = max(s.state.fail_ev.shape[0] for s in sims)
+            fev = -(-fev // 16) * 16 if fev else 0
+            # telemetry sample capacity buckets like rows (multiple of
+            # 64); ts == 0 (no sim carries buffers) selects the
+            # telemetry-free kernel
+            ts = max(s.state.tele_buf.shape[0] for s in sims)
+            ts = -(-ts // _BUCKET_ROWS) * _BUCKET_ROWS if ts else 0
+            with spans.span("fleet.pad"):
+                padded = [s.state.pad_to(m, k, fev, ts) for s in sims]
 
-        devs = self.devices[:len(padded)]
-        n, r = padded[0].avail.shape
-        key = (len(padded), m, k, fev, ts, n, r, self.use_kernel,
-               tuple(str(d) for d in devs))
-        cache_hit = key in self._seen
-        self._seen.add(key)
-        compile_time = 0.0
-        if devs[0].type == "cuda" and "fleet_engine" not in build._loaded:
-            t0 = time.time()
-            build.library("fleet_engine")
-            compile_time = time.time() - t0
-        # contiguous parts, one per device, as even as they come
-        cuts = np.linspace(0, len(padded), len(devs) + 1).round().astype(int)
-        t0 = time.time()
-        batches = [advance(stack(padded[a:b], dev), self.use_kernel)
-                   for dev, a, b in zip(devs, cuts[:-1], cuts[1:])]
-        finals = [f for batch in batches for f in unstack(batch)]
-        wall = time.time() - t0
-        return finals, wall, compile_time, cache_hit, len(devs)
+            devs = self.devices[:len(padded)]
+            n, r = padded[0].avail.shape
+            key = (len(padded), m, k, fev, ts, n, r, self.use_kernel,
+                   tuple(str(d) for d in devs))
+            cache_hit = key in self._seen
+            self._seen.add(key)
+            compile_time = 0.0
+            if devs[0].type == "cuda" and "fleet_engine" not in build._loaded:
+                t0 = time.perf_counter()
+                build.library("fleet_engine")
+                compile_time = time.perf_counter() - t0
+            # contiguous parts, one per device, as even as they come
+            cuts = np.linspace(0, len(padded),
+                               len(devs) + 1).round().astype(int)
+            events: List[List] = [[] for _ in devs]
+            t0 = time.perf_counter()
+            batches = [advance(stack(padded[a:b], dev), self.use_kernel,
+                               events=ev)
+                       for dev, a, b, ev in zip(devs, cuts[:-1], cuts[1:],
+                                                events)]
+            finals = [f for batch in batches for f in unstack(batch)]
+            wall = time.perf_counter() - t0
+            # the copies back have synchronised every launch's stream
+            per_dev = [sum(a.elapsed_time(b) for a, b in ev) * 1e-3
+                       for ev in events if ev]
+            device_s = max(per_dev) if per_dev else None
+            span.set(device_s=device_s)
+        return finals, wall, compile_time, cache_hit, len(devs), device_s
+
+
+def _cost_class(sims: Sequence[FleetSim]) -> str:
+    """``"ebf"``, ``"blocking"`` or, for a batch of both, ``"mixed"``."""
+    classes = {"ebf" if s.sched_id == SCHED_EBF else "blocking"
+               for s in sims}
+    return classes.pop() if len(classes) == 1 else "mixed"

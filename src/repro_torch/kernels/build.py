@@ -27,6 +27,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from ..telemetry import spans
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -110,44 +112,53 @@ def build_all(names=None) -> Dict[str, Tuple[float, str]]:
     """Compile every source (of ``names``, where given) that has no
     up-to-date library, one ``nvcc`` per source, all started together.
     Returns ``{name: (seconds, compiler log)}`` for the sources it
-    compiled; raises on a failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    t0 = time.perf_counter()
-    for name in SIGNATURES if names is None else names:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built: Dict[str, Tuple[float, str]] = {}
-    failed = []
-    for name, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        built[name] = (time.perf_counter() - t0, log)
+    compiled; raises on a failure.  A set-up span, ``kernels.build``
+    (attribute ``built``: whether ``nvcc`` ran)."""
+    with spans.setup_span("kernels.build") as span:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for name in SIGNATURES if names is None else names:
+            out = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (out, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        span.set(built=bool(procs))
+        built: Dict[str, Tuple[float, str]] = {}
+        failed = []
+        for name, (out, tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, out)
+            built[name] = (time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return built
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    The first load is a set-up span, ``kernels.load`` (after the build's
+    own ``kernels.build``; attribute ``built``: whether it waited for
+    one)."""
     lib = _loaded.get(name)
     if lib is None:
         out = _target(name)
-        if not out.exists():
+        built = not out.exists()
+        if built:
             build_all()
-        lib = ctypes.CDLL(str(out))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
+        with spans.setup_span("kernels.load", library=name, built=built):
+            lib = ctypes.CDLL(str(out))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
         _loaded[name] = lib
     return lib
 

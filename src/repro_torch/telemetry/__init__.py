@@ -17,6 +17,11 @@ through a single schema:
 Parity contract (pinned by ``tests/test_telemetry.py``): same workload +
 same stride ⇒ bit-identical sample matrices and phase-counter totals
 from either engine.
+
+The host side of the fleet path is traced by :mod:`.spans`: spans and
+counters where the work happens (pad, stack, copies, unstack, summaries,
+set-up), recorded in memory while tracing is on or a ``torch.profiler``
+session captures, and placed on the profiler's clock as its ranges.
 """
 from .trace import (BASE_COLUMNS, PHASE_KEYS, TelemetryTrace,
                     telemetry_columns)

@@ -125,8 +125,9 @@ def _both(roots, capsys, json_name, call_ref, call_port):
 
 
 class CountingClock:
-    """``time.time`` that moves one second a call: every fleet launch
-    then takes the same wall on both packages."""
+    """``time.time`` (the reference's clock) and ``time.perf_counter``
+    (the port's) that move one second a call: every fleet launch then
+    takes the same wall on both packages."""
 
     def __init__(self):
         self.t = 0.0
@@ -134,6 +135,15 @@ class CountingClock:
     def time(self):
         self.t += 1.0
         return self.t
+
+    perf_counter = time
+
+
+def _without_device_time(launches):
+    """The port's launch records less ``device_time_s``, the kernel's
+    time on the card, which the reference does not record (None on the
+    CPU)."""
+    assert all(l.pop("device_time_s") is None for l in launches)
 
 
 # ----------------------------------------------------------------------
@@ -245,6 +255,7 @@ def test_fleet_matches_reference(roots, monkeypatch, capsys):
         lambda out: ref_fleet.run(out, quick=True),
         lambda out: bench_fleet.run(out, quick=True, device="cpu"))
     assert got_names == want_names
+    _without_device_time(got["fleet"]["launches"])
     assert_same(got, want)
     assert got["n_sims"] == 4 and got["fleet_covered_fraction"] == 1.0
     assert [(l["cost_class"], l["n_sims"]) for l in got["fleet"]["launches"]
@@ -279,6 +290,8 @@ def test_profile_matches_reference(roots, monkeypatch, capsys):
         lambda out: ref_profile.run(out, quick=True),
         lambda out: bench_profile.run(out, quick=True, device="cpu"))
     assert got_names == want_names
+    for side in ("telemetry_off", "telemetry_on"):
+        _without_device_time(got[side]["launches"])
     assert_same(got, want)
     assert got["phase_attribution"]["EBF-BF"]["shadow_trips"] > 0
     for name in ("ref", "port"):
