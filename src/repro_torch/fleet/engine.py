@@ -541,24 +541,40 @@ def _tele_row(t, queue, w) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # batches: stacked int32 tensors, one per field
 # ----------------------------------------------------------------------
-def stack(states: List[SimState], device) -> SimState:
-    """Stack equally shaped numpy states along a leading sim axis into
-    one contiguous int32 tensor per field on ``device``.  Span
-    ``fleet.stack``; while tracing is on, each field's ``.to(device)``
-    adds its seconds and bytes to counter ``fleet.h2d``."""
+def stack(states, device) -> SimState:
+    """One contiguous int32 tensor per field, with a leading sim axis, on
+    ``device``.
+
+    ``states`` is either a list of equally shaped numpy states, stacked
+    here, or a staged host batch: a :class:`SimState` of int32 CPU
+    tensors that already have the sim axis (``FleetRunner``'s, page-locked
+    for a CUDA ``device``), copied with one non-blocking copy a field
+    into new tensors (on the CPU too: the batch never aliases the host
+    batch).  Span ``fleet.stack``; while tracing is on, the field copies
+    add their seconds and bytes to counter ``fleet.h2d``, the seconds
+    running to the copies' completion (the stream is synchronised inside
+    the counter's window)."""
     with spans.span("fleet.stack") as span:
+        staged = isinstance(states, SimState)
+        host = states if staged else (
+            torch.from_numpy(np.ascontiguousarray(np.stack(
+                [np.asarray(getattr(s, k)) for s in states]),
+                dtype=np.int32)) for k in SimState._fields)
         fields = []
         h2d_s = 0.0
         h2d_bytes = 0
-        for k in SimState._fields:
-            host = np.ascontiguousarray(np.stack(
-                [np.asarray(getattr(s, k)) for s in states]), dtype=np.int32)
+        for t in host:
             t0 = time.perf_counter() if span else 0.0
-            fields.append(torch.from_numpy(host).to(device))
+            fields.append(t.to(device, non_blocking=staged, copy=staged))
             if span:
                 h2d_s += time.perf_counter() - t0
-                h2d_bytes += host.nbytes
+                h2d_bytes += t.nbytes
         if span:
+            dev = fields[0].device
+            if dev.type == "cuda":
+                t0 = time.perf_counter()
+                torch.cuda.current_stream(dev).synchronize()
+                h2d_s += time.perf_counter() - t0
             spans.count("fleet.h2d", len(fields), h2d_s, h2d_bytes)
         return SimState(*fields)
 

@@ -3,12 +3,14 @@
 Batching model: each grid point (scheduler code × workload/seed) becomes
 one :class:`~repro_torch.fleet.state.SimState`; all states are padded to
 a common shape (rows, assignment width, failure events, telemetry
-samples), stacked along a leading sim axis into one int32 tensor per
-field, and advanced by ONE launch of the ``fleet_engine`` kernel, one
-thread block per sim.  With more than one device (every visible card by
-default, or an explicit ``devices=`` list) the sim batch is split into
-contiguous parts, one launch per device, all in flight together — sims
-are independent, so nothing is exchanged between devices.
+samples), written once, already padded, into host buffers with a leading
+sim axis (one int32 tensor per field, page-locked when the target is a
+card), copied to the device with one non-blocking copy a field, and
+advanced by ONE launch of the ``fleet_engine`` kernel, one thread block
+per sim.  With more than one device (every visible card by default, or
+an explicit ``devices=`` list) the sim batch is split into contiguous parts, one launch per
+device, all in flight together — sims are independent, so nothing is
+exchanged between devices.
 
 Mixed grids are first split by dispatch *cost class* (EBF vs plain
 blocking schedulers) into separate launches, as the reference does for
@@ -291,6 +293,24 @@ def _bucket_width(k: int) -> int:
     return w
 
 
+def _stage(b: int, m: int, k: int, fev: int, ts: int, n: int, r: int,
+           pin: bool) -> SimState:
+    """The host batch of one launch: an empty int32 tensor ``[b, ...]``
+    a field, page-locked when ``pin`` (a CUDA target).  PyTorch's caching
+    host allocator hands the same page-locked blocks out again, launch
+    after launch and runner after runner, once the copies recorded on
+    them have finished, so only a launch of a new size pays for the
+    page-locking.  Counter ``fleet.stage``: the batch's bytes and the
+    seconds its allocation took."""
+    t0 = time.perf_counter()
+    host = SimState(*(
+        torch.empty((b,) + shape, dtype=torch.int32, pin_memory=pin)
+        for shape in SimState._shapes(m, n, r, k, fev, ts).values()))
+    spans.count("fleet.stage", seconds=time.perf_counter() - t0,
+                bytes=sum(t.nbytes for t in host))
+    return host
+
+
 class FleetRunner:
     """Launches a batch of :class:`FleetSim` grid points.
 
@@ -435,12 +455,17 @@ class FleetRunner:
             # telemetry-free kernel
             ts = max(s.state.tele_buf.shape[0] for s in sims)
             ts = -(-ts // _BUCKET_ROWS) * _BUCKET_ROWS if ts else 0
+            n, r = sims[0].state.avail.shape
+            host = _stage(len(sims), m, k, fev, ts, n, r,
+                          pin=self.devices[0].type == "cuda")
             with spans.span("fleet.pad"):
-                padded = [s.state.pad_to(m, k, fev, ts) for s in sims]
+                rows = [t.numpy() for t in host]
+                for i, s in enumerate(sims):
+                    s.state.pad_to(m, k, fev, ts,
+                                   out=SimState(*(a[i, ...] for a in rows)))
 
-            devs = self.devices[:len(padded)]
-            n, r = padded[0].avail.shape
-            key = (len(padded), m, k, fev, ts, n, r, self.use_kernel,
+            devs = self.devices[:len(sims)]
+            key = (len(sims), m, k, fev, ts, n, r, self.use_kernel,
                    tuple(str(d) for d in devs))
             cache_hit = key in self._seen
             self._seen.add(key)
@@ -450,12 +475,12 @@ class FleetRunner:
                 build.library("fleet_engine")
                 compile_time = time.perf_counter() - t0
             # contiguous parts, one per device, as even as they come
-            cuts = np.linspace(0, len(padded),
+            cuts = np.linspace(0, len(sims),
                                len(devs) + 1).round().astype(int)
             events: List[List] = [[] for _ in devs]
             t0 = time.perf_counter()
-            batches = [advance(stack(padded[a:b], dev), self.use_kernel,
-                               events=ev)
+            batches = [advance(stack(SimState(*(t[a:b] for t in host)), dev),
+                               self.use_kernel, events=ev)
                        for dev, a, b, ev in zip(devs, cuts[:-1], cuts[1:],
                                                 events)]
             finals = [f for batch in batches for f in unstack(batch)]

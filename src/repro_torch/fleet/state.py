@@ -59,6 +59,19 @@ LOADED, QUEUED, RUNNING, COMPLETED, REJECTED = (
     int(JobState.COMPLETED), int(JobState.REJECTED))
 
 
+# the [M] job columns, and what a pad row holds in each (0 where not
+# listed): completed, never submitted, never queued or started
+_ROW_COLS = ("submit", "duration", "est", "n_need", "state", "queued_time",
+             "start", "end", "fifo_rank", "unfit", "pending", "pri")
+_ROW_PAD = {"submit": INF_I, "est": 1, "state": COMPLETED,
+            "queued_time": UNSET_I, "start": UNSET_I, "end": INF_I,
+            "fifo_rank": INF_I}
+# the [N] and [N, R] node columns, never padded
+_NODE_COLS = ("avail", "capacity", "node_up", "quar_until", "down_since")
+# a pad failure event (time, node, kind): at INF_I, never reached
+_FAIL_PAD = (INF_I, 0, 0)
+
+
 class SimState(NamedTuple):
     """Device-ready fixed-capacity simulation state.
 
@@ -155,7 +168,8 @@ class SimState(NamedTuple):
 
     # ------------------------------------------------------------------
     def pad_to(self, m: int, k: int, fev: Optional[int] = None,
-               ts: Optional[int] = None) -> "SimState":
+               ts: Optional[int] = None,
+               out: Optional["SimState"] = None) -> "SimState":
         """Grow row capacity to ``m``, the assignment width to ``k``, the
         failure-schedule length to ``fev`` and the telemetry sample
         capacity to ``ts`` (no-op if already that size) — fleet batching
@@ -164,7 +178,15 @@ class SimState(NamedTuple):
         failure events carry ``t = INF_I``, which the drain loop never
         reaches; pad telemetry rows stay zero (``tele_n`` never reaches
         them — and a telemetry-off sim padded into a telemetry-on batch
-        keeps ``tele_stride = 0``, so it never writes at all)."""
+        keeps ``tele_stride = 0``, so it never writes at all).
+
+        The padded state is written, in one pass, into ``out``: a state
+        of int32 arrays already of the padded shapes (one sim's row of a
+        staged batch), or fresh arrays when ``out`` is None.  The sim's
+        arrays fill the leading part of each field and the blank
+        defaults the pad tails, so every element is written.  Returns
+        the padded state (``self`` when nothing grows and no ``out``
+        is given)."""
         m0, k0 = self.n_rows, self.assigned.shape[1]
         f0 = self.fail_ev.shape[0]
         s0 = self.tele_buf.shape[0]
@@ -176,68 +198,70 @@ class SimState(NamedTuple):
             raise ValueError(
                 f"cannot shrink ({m0},{k0},{f0},{s0}) -> "
                 f"({m},{k},{fev},{ts})")
-        if m == m0 and k == k0 and fev == f0 and ts == s0:
-            return self
-        n, r = self.avail.shape
-        f = self._blank(m, n, r, k, fev, ts)
-        e0 = self.log_t.shape[0]
-        for name, val in self._asdict().items():
-            cur = np.asarray(val)
-            if cur.ndim == 0:
-                f[name] = cur
-            elif name == "req":
-                f[name][:m0] = cur
-            elif name == "assigned":
-                # pad columns keep the old trash id (== n) from _blank
-                f[name][:m0, :k0] = cur
-            elif name == "fail_ev":
-                f[name][:f0] = cur
-            elif name == "tele_buf":
-                f[name][:s0] = cur
-            elif name.startswith("log_"):
-                f[name][:e0] = cur
-            elif name in ("avail", "capacity", "node_up", "quar_until",
-                          "down_since"):
-                f[name] = cur
-            else:
-                f[name][:m0] = cur
-        return SimState(**f)
+        if out is None:
+            if (m, k, fev, ts) == (m0, k0, f0, s0):
+                return self
+            n, r = self.avail.shape
+            out = SimState(*(np.empty(shape, np.int32) for shape in
+                             self._shapes(m, n, r, k, fev, ts).values()))
+        return self._pad_into(out, m, k, fev, ts)
+
+    def _pad_into(self, out: "SimState", m: int, k: int, fev: int,
+                  ts: int) -> "SimState":
+        """``pad_to``'s one pass into ``out``; allocates no array."""
+        if (out.submit.shape != (m,) or out.assigned.shape[1] != k
+                or out.fail_ev.shape[0] != fev
+                or out.tele_buf.shape[0] != ts):
+            raise ValueError(
+                f"out is not ({m},{k},{fev},{ts}): "
+                f"{out.assigned.shape}, {out.fail_ev.shape[0]}, "
+                f"{out.tele_buf.shape[0]}")
+        m0, k0 = self.n_rows, self.assigned.shape[1]
+        for name, cur, dst in zip(self._fields, self, out):
+            if dst.ndim == 0 or name in _NODE_COLS:
+                dst[...] = cur
+                continue
+            cur = np.asarray(cur)
+            c = cur.shape[0]
+            if name == "assigned":
+                # pad columns and pad rows hold the trash id (== n)
+                n = self.avail.shape[0]
+                dst[:m0, :k0] = cur
+                dst[:m0, k0:] = n
+                dst[m0:] = n
+                continue
+            dst[:c] = cur
+            dst[c:] = (_ROW_PAD.get(name, 0) if name in _ROW_COLS else
+                       _FAIL_PAD if name == "fail_ev" else 0)
+        return out
 
     # ------------------------------------------------------------------
     @classmethod
+    def _shapes(cls, m: int, n: int, r: int, k: int, fev: int = 0,
+                ts: int = 0) -> Dict[str, Tuple[int, ...]]:
+        """Each field's shape, in field order (``()`` for the 0-d ones),
+        as ``_blank`` allocates them."""
+        e = 2 * m + fev + 8
+        shapes = dict(
+            {c: (m,) for c in _ROW_COLS}, req=(m, r), assigned=(m, k),
+            avail=(n, r), capacity=(n, r), node_up=(n,), quar_until=(n,),
+            down_since=(n,), log_t=(e,), log_queue=(e,), log_running=(e,),
+            log_started=(e,), fail_ev=(fev, 3), tele_buf=(ts, 5 + r))
+        return {f: shapes.get(f, ()) for f in cls._fields}
+
+    @classmethod
     def _blank(cls, m: int, n: int, r: int, k: int,
                fev: int = 0, ts: int = 0) -> Dict[str, np.ndarray]:
-        e = 2 * m + fev + 8
         i32 = np.int32
-        fail_ev = np.zeros((fev, 3), i32)
-        fail_ev[:, 0] = INF_I                 # pad events never fire
-        return dict(
-            submit=np.full(m, INF_I, i32), duration=np.zeros(m, i32),
-            est=np.ones(m, i32), n_need=np.zeros(m, i32),
-            state=np.full(m, COMPLETED, i32),
-            queued_time=np.full(m, UNSET_I, i32),
-            start=np.full(m, UNSET_I, i32), end=np.full(m, INF_I, i32),
-            fifo_rank=np.full(m, INF_I, i32), unfit=np.zeros(m, i32),
-            req=np.zeros((m, r), i32), assigned=np.full((m, k), n, i32),
-            avail=np.zeros((n, r), i32), capacity=np.zeros((n, r), i32),
-            pending=np.zeros(m, i32), ptr=i32(0), n_pending=i32(0),
-            now=i32(0), rank_ctr=i32(0), sched_id=i32(0), alloc_id=i32(0),
-            n_submitted=i32(0), n_completed=i32(0), n_rejected=i32(0),
-            n_started=i32(0), n_events=i32(0), n_rounds=i32(0),
-            steps=i32(0),
-            log_t=np.zeros(e, i32), log_queue=np.zeros(e, i32),
-            log_running=np.zeros(e, i32), log_started=np.zeros(e, i32),
-            pri=np.zeros(m, i32), fail_ev=fail_ev,
-            fptr=i32(0), n_fail=i32(0),
-            node_up=np.ones(n, i32), quar_until=np.zeros(n, i32),
-            down_since=np.full(n, -1, i32),
-            quarantine_s=i32(0), ckpt_every_s=i32(0),
-            n_requeued=i32(0), lost_work_s=i32(0), node_downtime_s=i32(0),
-            tele_stride=i32(0), tele_n=i32(0),
-            tele_buf=np.zeros((ts, 5 + r), i32),
-            ct_disp_trips=i32(0), ct_shadow_trips=i32(0),
-            ct_backfill=i32(0), ct_misfit=i32(0),
-        )
+        f = {name: np.zeros(shape, i32) if shape else i32(0)
+             for name, shape in cls._shapes(m, n, r, k, fev, ts).items()}
+        for c, v in _ROW_PAD.items():
+            f[c][:] = v
+        f["assigned"][:] = n                  # the trash id
+        f["fail_ev"][:] = _FAIL_PAD           # pad events never fire
+        f["node_up"][:] = 1
+        f["down_since"][:] = -1
+        return f
 
     # ------------------------------------------------------------------
     @classmethod

@@ -30,10 +30,16 @@ name                   kind     where
 ``fleet.launch``       span     ``FleetRunner._launch``: one cost class;
                                 attrs ``cost_class``, ``n_sims``, ``m``,
                                 ``k``, ``device_s``
-``fleet.pad``          span     the sims' ``SimState.pad_to`` in
-                                ``_launch``
+``fleet.stage``        counter  each launch's staged host batch
+                                (``fleet.runner._stage``): its bytes and
+                                the seconds its allocation took
+                                (page-locked for a card)
+``fleet.pad``          span     the sims' ``SimState.pad_to`` into the
+                                staged batch in ``_launch``
 ``fleet.stack``        span     ``fleet.engine.stack``
-``fleet.h2d``          counter  each ``.to(device)`` in ``stack``
+``fleet.h2d``          counter  the field copies in ``stack``, one call
+                                a field; on a card, the seconds run to
+                                the copies' completion
 ``fleet.kernel.wait``  span     CUDA only: ``unstack`` waits for the
                                 batch's stream before its first copy
 ``fleet.unstack``      span     ``fleet.engine.unstack``
@@ -56,10 +62,11 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-#: every span name the port records
-NAMES = ("fleet.run", "fleet.launch", "fleet.pad", "fleet.stack",
-         "fleet.kernel.wait", "fleet.unstack", "fleet.build",
-         "kernels.build", "kernels.load")
+#: every span and counter name the port records
+NAMES = ("fleet.run", "fleet.launch", "fleet.stage", "fleet.pad",
+         "fleet.stack", "fleet.h2d", "fleet.kernel.wait", "fleet.unstack",
+         "fleet.d2h", "results.summary", "results.rss",
+         "fleet.build", "kernels.build", "kernels.load")
 
 _enabled = False
 # True while a torch.profiler session captures (~0.2 us a call)
